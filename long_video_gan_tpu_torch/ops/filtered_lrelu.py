@@ -15,8 +15,9 @@ Counterpart of `long_video_gan_tpu/ops/filtered_lrelu.py`. Semantics:
 version of the Hopper kernel in `filtered_lrelu_cuda.py`. `impl` selects:
 
   "conv", "matrix"  the composed path
-  "packed"          the kernel (the JAX package's lane-packed Pallas kernel on
-                    the TPU); a CPU tensor takes the plain version
+  "packed"          the kernels (the JAX package's lane-packed Pallas kernels on
+                    the TPU): K1 forward, K2 backward, first-order
+                    differentiable; a CPU tensor takes the plain versions
   "fused", "pallas" raise: their kernels are not ported yet (ROADMAP.md
                     Queue 2, K3 and K4)
 

@@ -6,6 +6,13 @@ conv), decimate through the conv stride. `impl="matrix"` (the JAX package's
 banded-matrix formulation for the TPU's matrix unit) takes the same path here;
 a matrix backend of its own is listed in ROADMAP.md Queue 1.
 
+The op is an autograd Function whose gradient is upfirdn2d again, with up and
+down swapped and the filter flipped (the reference's hand-derived adjoint),
+so every order of derivative runs the same forward convolutions. Autograd's
+own double backward of a depthwise conv runs one convolution per channel on
+the card: R1, which differentiates D and the ADA warp twice, took 41 s per
+micro-batch of 16 that way (NVIDIA H100).
+
 Filters are numpy arrays, torch tensors (modules keep them as non-persistent
 buffers, so they live on the module's device) or None (identity).
 """
@@ -69,6 +76,7 @@ def upfirdn2d(x: torch.Tensor, f: Filter, up=1, down=1, padding=0, flip_filter=F
     convolve with `f` (`[fh, fw]` full, `[taps]` separable, None identity),
     keep every `down`-th sample. `flip_filter=False` means convolution, True
     means correlation. Output height is (H*upy + py0 + py1 - fh) // downy + 1.
+    Differentiable to any order in `x`.
     """
     assert x.ndim == 4, f"expected NCHW input, got shape {tuple(x.shape)}"
     if impl in ("fused", "packed", "pallas", "auto", "matrix"):
@@ -77,12 +85,54 @@ def upfirdn2d(x: torch.Tensor, f: Filter, up=1, down=1, padding=0, flip_filter=F
     f = as_filter_tensor(f, x.device)
     upx, upy = parse_scaling(up)
     downx, downy = parse_scaling(down)
-    px0, px1, py0, py1 = parse_padding(padding)
+    padding = parse_padding(padding)
+    px0, px1, py0, py1 = padding
+    fw, fh = filter_size(f)
+    assert x.shape[3] * upx + px0 + px1 >= fw and x.shape[2] * upy + py0 + py1 >= fh, (
+        f"upsampled buffer smaller than filter {fh}x{fw}")
+    return _Upfirdn2d.apply(x, f, (upx, upy), (downx, downy), padding, bool(flip_filter),
+                            float(gain))
 
+
+class _Upfirdn2d(torch.autograd.Function):
+    """upfirdn2d with the adjoint as its gradient."""
+
+    @staticmethod
+    def forward(ctx, x, f, up, down, padding, flip_filter, gain):
+        ctx.save_for_backward(f)
+        ctx.args = (tuple(x.shape), up, down, padding, flip_filter, gain)
+        return _upfirdn2d_conv(x, f, up, down, padding, flip_filter, gain)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (f,) = ctx.saved_tensors
+        in_shape, (upx, upy), (downx, downy), (px0, px1, py0, py1), flip_filter, gain = ctx.args
+        fw, fh = filter_size(f)
+        in_h, in_w = in_shape[2:]
+        out_h, out_w = dy.shape[2:]
+        padding = (fw - px0 - 1, in_w * upx - out_w * downx + px0 - upx + 1,
+                   fh - py0 - 1, in_h * upy - out_h * downy + py0 - upy + 1)
+        dx = _Upfirdn2d.apply(dy, f, (downx, downy), (upx, upy), padding, not flip_filter, gain)
+        assert tuple(dx.shape) == in_shape, (tuple(dx.shape), in_shape)
+        return dx, None, None, None, None, None, None
+
+
+def pad_or_crop(x: torch.Tensor, padding: tuple[int, int, int, int]) -> torch.Tensor:
+    """Zero-pad NCHW maps by [px0, px1, py0, py1]; negative entries crop."""
+    px0, px1, py0, py1 = padding
+    x = F.pad(x, [max(px0, 0), max(px1, 0), max(py0, 0), max(py1, 0)])
+    return x[:, :, max(-py0, 0):x.shape[2] - max(-py1, 0),
+             max(-px0, 0):x.shape[3] - max(-px1, 0)]
+
+
+def _upfirdn2d_conv(x: torch.Tensor, f: torch.Tensor, up: tuple[int, int],
+                    down: tuple[int, int], padding: tuple[int, int, int, int],
+                    flip_filter: bool, gain: float) -> torch.Tensor:
+    """The forward computation: zero-stuff, pad/crop, depthwise FIR conv(s)
+    with the decimation as their stride."""
+    (upx, upy), (downx, downy) = up, down
     n, c, in_h, in_w = x.shape
     fw, fh = filter_size(f)
-    assert in_w * upx + px0 + px1 >= fw and in_h * upy + py0 + py1 >= fh, (
-        f"upsampled buffer smaller than filter {fh}x{fw}")
 
     # Zero-stuff: each sample padded to a full stride (up-1 trailing zeros).
     if upx > 1 or upy > 1:
@@ -90,14 +140,11 @@ def upfirdn2d(x: torch.Tensor, f: Filter, up=1, down=1, padding=0, flip_filter=F
         x = F.pad(x, [0, upx - 1, 0, 0, 0, upy - 1])
         x = x.reshape(n, c, in_h * upy, in_w * upx)
 
-    # Pad, then crop for negative padding.
-    x = F.pad(x, [max(px0, 0), max(px1, 0), max(py0, 0), max(py1, 0)])
-    x = x[:, :, max(-py0, 0):x.shape[2] - max(-py1, 0),
-          max(-px0, 0):x.shape[3] - max(-px1, 0)]
+    x = pad_or_crop(x, padding)
 
     # conv2d correlates: flip for convolution. Gain ** (ndim/2) per pass so
     # two separable passes compose to `gain`.
-    f = f * (float(gain) ** (f.ndim / 2))
+    f = f * (gain ** (f.ndim / 2))
     if not flip_filter:
         f = f.flip(list(range(f.ndim)))
     f = f.to(x.dtype)

@@ -1,5 +1,5 @@
-"""On-card check of the filtered_lrelu kernel against its plain version at
-the layer geometries of the 144x256 sres plan.
+"""On-card check of the filtered_lrelu kernels (K1 forward, K2 backward)
+against their plain versions at the layer geometries of the 144x256 sres plan.
 
 Counterpart of `scripts/tpu_selftest.py`: filters, paddings and factors come
 from the port's own `SynthesisLayer`s, with `frames` x `out_channels` planes.
@@ -19,7 +19,7 @@ import torch
 
 from .models.generator_sres import SynthesisLayer, SynthesisNetwork
 from .ops import filtered_lrelu_cuda
-from .ops.filtered_lrelu import filtered_lrelu_composed
+from .ops.filtered_lrelu import filtered_lrelu_composed, output_size
 
 # Max-abs error relative to max|reference|. bf16: a few bf16 ulps, since the
 # input and output round to bf16 and the kernel sums in f32 (the bar of
@@ -29,6 +29,10 @@ TOLS = {torch.bfloat16: 0.03, torch.float32: 1e-4}
 # The bf16 layers of the 144x256 plan that launch the kernel (L14, ToRGB, is
 # an identity resample and takes the composed path).
 KERNEL_LAYERS = tuple(range(3, 14))
+
+# Frames per slice of the f32 reference: at a training micro-batch (64
+# frames) the reference of an up-4 layer would not fit the card at once.
+REF_FRAMES = 16
 
 
 def plan_layers(img_width: int = 256, img_height: int = 144, channel_max: int = 512,
@@ -81,11 +85,36 @@ def _time_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def check_layer(layer: SynthesisLayer, name: str, frames: int, dtype: torch.dtype,
-                device: torch.device, generator: torch.Generator,
-                time_it: bool = False) -> LayerCheck:
-    """Kernel (through its wrapper) against the plain f32 version on one
-    layer's geometry; optionally times both in `dtype` with CUDA events."""
+def _against_plain(name: str, out: torch.Tensor, dtype: torch.dtype, plain) -> LayerCheck:
+    """`out` (the kernel's, launched once at full size) against `plain(s)`,
+    the f32 plain version (TF32 off) of the frames in slice `s`, computed
+    REF_FRAMES frames at a time so that its memory stays bounded at training
+    size; error and scale are the maxima over the slices."""
+    err = scale = 0.0
+    ref_frames, ref_rest = 0, None
+    with tf32_off():
+        for start in range(0, out.shape[0], REF_FRAMES):
+            s = slice(start, start + REF_FRAMES)
+            ref = plain(s)
+            ref_frames += ref.shape[0]
+            ref_rest = tuple(ref.shape[1:])
+            if tuple(out[s].shape) == tuple(ref.shape):
+                err = max(err, (out[s].float() - ref).abs().max().item())
+                scale = max(scale, ref.abs().max().item())
+            else:
+                err = math.inf
+            del ref
+    scale = scale or 1.0
+    return LayerCheck(name=name, shape=tuple(out.shape), dtype=str(dtype).split(".")[-1],
+                      max_abs_err=err, rel_err=err / scale,
+                      ok=tuple(out.shape) == (ref_frames,) + ref_rest and out.dtype == dtype
+                      and err <= TOLS[dtype] * scale)
+
+
+def _layer_inputs(layer: SynthesisLayer, frames: int, dtype: torch.dtype,
+                  device: torch.device, generator: torch.Generator):
+    """Seeded input x and bias b of one layer's filtered_lrelu, its filters on
+    `device`, and its keyword arguments."""
     h = layer.in_size[1] + layer.kernel - 1
     w = layer.in_size[0] + layer.kernel - 1
     c = layer.out_channels
@@ -97,21 +126,49 @@ def check_layer(layer: SynthesisLayer, name: str, frames: int, dtype: torch.dtyp
     fd = layer.down_filter.to(device)
     kw = dict(up=layer.up_factor, down=layer.down_factor, padding=layer.padding,
               gain=math.sqrt(2.0), slope=0.2, clamp=layer.conv_clamp)
+    return x, b, fu, fd, kw
+
+
+def check_layer(layer: SynthesisLayer, name: str, frames: int, dtype: torch.dtype,
+                device: torch.device, generator: torch.Generator,
+                time_it: bool = False) -> LayerCheck:
+    """Kernel (through its wrapper) against the plain f32 version on one
+    layer's geometry, `frames` x out_channels planes; optionally times both in
+    `dtype` with CUDA events, each at full size."""
+    x, b, fu, fd, kw = _layer_inputs(layer, frames, dtype, device, generator)
 
     with torch.no_grad():
         out = filtered_lrelu_cuda.filtered_lrelu_packed(x, fu, fd, b, **kw)
         xb = x + b.reshape(1, -1, 1, 1)
-        with tf32_off():
-            ref = filtered_lrelu_composed(xb.float(), fu, fd, None, **kw)
-        torch.cuda.synchronize()
-        err = (out.float() - ref).abs().max().item()
-        scale = ref.abs().max().item() or 1.0
-        check = LayerCheck(name=name, shape=tuple(out.shape), dtype=str(dtype).split(".")[-1],
-                           max_abs_err=err, rel_err=err / scale,
-                           ok=out.shape == ref.shape and out.dtype == dtype
-                           and err <= TOLS[dtype] * scale)
+        check = _against_plain(name, out, dtype, lambda s: filtered_lrelu_composed(
+            xb[s].float(), fu, fd, None, **kw))
         if time_it:
             check.ms = _time_ms(lambda: filtered_lrelu_cuda.filtered_lrelu_fwd_cuda(
                 xb, fu, fd, **kw))
             check.plain_ms = _time_ms(lambda: filtered_lrelu_composed(xb, fu, fd, None, **kw))
+    return check
+
+
+def check_layer_bwd(layer: SynthesisLayer, name: str, frames: int, dtype: torch.dtype,
+                    device: torch.device, generator: torch.Generator,
+                    time_it: bool = False) -> LayerCheck:
+    """K2 (through its wrapper) against its plain version, the autograd
+    gradient of the composed op in f32 (TF32 off), on one layer's geometry
+    and a seeded output gradient; optionally times both in `dtype`."""
+    x, b, fu, fd, kw = _layer_inputs(layer, frames, dtype, device, generator)
+    xb = x + b.reshape(1, -1, 1, 1)
+    out_shape = (xb.shape[0], xb.shape[1]) + output_size(
+        xb.shape[2], xb.shape[3], fu, fd, kw["up"], kw["down"], kw["padding"])
+    dy = torch.randn(out_shape, generator=generator, device=generator.device)
+    dy = dy.to(device=device, dtype=dtype)
+
+    dx = filtered_lrelu_cuda.filtered_lrelu_bwd_cuda(xb, dy, fu, fd, **kw)
+    check = _against_plain(name, dx, dtype, lambda s: (
+        filtered_lrelu_cuda.filtered_lrelu_bwd_plain(xb[s].float(), dy[s].float(), fu, fd,
+                                                     **kw)))
+    if time_it:
+        check.ms = _time_ms(lambda: filtered_lrelu_cuda.filtered_lrelu_bwd_cuda(
+            xb, dy, fu, fd, **kw))
+        check.plain_ms = _time_ms(lambda: filtered_lrelu_cuda.filtered_lrelu_bwd_plain(
+            xb, dy, fu, fd, **kw))
     return check
