@@ -1,11 +1,19 @@
-"""Smoke run of the PyTorch port on one NVIDIA GPU: builds the port's CUDA
-kernels from the checkout, holds each against its plain version at every layer
-geometry it serves (K1 forward at generation and training size, K2 backward
-at training size: the shapes training runs them at), drives full-width two-stage generation through
-`long_video_gan_tpu_torch.generate.generate_video`, then three full-width sres
-training steps through `train_sres.train_step`, checks a G micro-batch's
-gradient against the plain path, and generates from the trained G_ema after a
-save/load round trip.
+"""Smoke run of the PyTorch port on one NVIDIA GPU: builds the port's four CUDA
+sources from the checkout (six kernels), holds each kernel against its plain
+version at every layer geometry its paths give it (K1 forward at generation
+and training size, K2 backward at training size; K3a forward at generation
+and training size, K3b backward at training size; K4 and K5 at generation
+size), then drives each path through the entry points a user calls:
+
+- full-width two-stage generation through
+  `long_video_gan_tpu_torch.generate.generate_video`, with the kernel policy
+  (`resample_impl="auto"`: K1) and with `resample_impl="fused"` (K3a);
+- full-width sres training steps through `train_sres.train_step`, with G on
+  "auto" (K1, K2) and on "fused" (K3a, K3b), each with a G micro-batch's
+  gradient checked against the plain path; generation from the trained
+  G_ema after a save/load round trip;
+- K4 through `SynthesisLayer(resample_impl="pallas")` and K5 through its entry
+  point `filtered_lrelu_pallas_v2`, at the full-width layers they serve.
 
     python3 chip_smoke.py
 
@@ -25,18 +33,30 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
-FRAMES = 64            # output frames of the generation phase
+FRAMES = 64            # output frames of the generation phases
 SEGMENT = 16           # sres window (bench.py configuration)
 CONTEXT = 4
 SRES_KWARGS = dict(hr_height=144, hr_width=256, lr_height=36, lr_width=64,
                    temporal_context=CONTEXT, num_fp16_res=4, resample_impl="auto")
-MODEL_TOL = 0.05       # relative max-abs, auto vs plain (scripts/tpu_selftest.py)
+MODEL_TOL = 0.05       # relative max-abs, kernel path vs plain (scripts/tpu_selftest.py)
 TRAIN_BATCH = 32       # train_sres.py full preset
 GRAD_ACCUM = 2         # the smallest that fits in 80 GB (1 runs out of memory)
-TRAIN_STEPS = 3
-GRAD_TOL = 0.05        # relative max-abs of G's parameter gradients, auto vs conv
+TRAIN_STEPS = 3        # G on "auto"
+FUSED_TRAIN_STEPS = 2  # G on "fused"
+GRAD_TOL = 0.05        # relative max-abs of G's parameter gradients, kernel path vs conv
 GRAD_CLIPS = 4         # gradient check micro-batch: the plain path at 16 clips runs out of 80 GB
+EXACT_LAYERS = (0, 4, 6, 8, 9, 11, 12, 14)   # K4/K5: one layer of each geometry they serve
 SEED = 0
+
+# The TPU kernel each one replaces (function that reaches pl.pallas_call).
+REPLACES = {
+    "K1": "long_video_gan_tpu/ops/pallas/filtered_lrelu_packed.py:212",
+    "K2": "long_video_gan_tpu/ops/pallas/filtered_lrelu_packed.py:305",
+    "K3a": "long_video_gan_tpu/ops/pallas/filtered_lrelu_fused.py:194",
+    "K3b": "long_video_gan_tpu/ops/pallas/filtered_lrelu_fused.py:277",
+    "K4": "long_video_gan_tpu/ops/pallas/filtered_lrelu_kernel.py:117",
+    "K5": "long_video_gan_tpu/ops/pallas/filtered_lrelu_v2.py:66",
+}
 
 
 def phase(name: str) -> None:
@@ -47,6 +67,28 @@ def rel_err(got, want) -> float:
     return ((got - want).abs().max() / want.abs().max()).item()
 
 
+def counters():
+    """Kernel name -> (module, attribute) of its launch count."""
+    from long_video_gan_tpu_torch.ops import (filtered_lrelu_cuda, filtered_lrelu_exact,
+                                              filtered_lrelu_fused, filtered_lrelu_polyphase)
+
+    return {"K1": (filtered_lrelu_cuda, "launches"),
+            "K2": (filtered_lrelu_cuda, "bwd_launches"),
+            "K3a": (filtered_lrelu_fused, "fwd_launches"),
+            "K3b": (filtered_lrelu_fused, "bwd_launches"),
+            "K4": (filtered_lrelu_exact, "launches"),
+            "K5": (filtered_lrelu_polyphase, "launches")}
+
+
+def reset_counts() -> None:
+    for module, attr in counters().values():
+        setattr(module, attr, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(module, attr) for name, (module, attr) in counters().items()}
+
+
 def main() -> int:
     import torch
 
@@ -55,17 +97,18 @@ def main() -> int:
         return 1
 
     from long_video_gan_tpu_torch import selftest
-    from long_video_gan_tpu_torch.generate import generate_video, super_resolve, synthesize_lres
+    from long_video_gan_tpu_torch.generate import synthesize_lres
     from long_video_gan_tpu_torch.io.checkpoint import load_generator, save_generator
     from long_video_gan_tpu_torch.models import generator_lres, generator_sres
     from long_video_gan_tpu_torch.models.common import init_weights_
-    from long_video_gan_tpu_torch.ops import filtered_lrelu_cuda
-    from long_video_gan_tpu_torch.train.stats import Collector
-    from long_video_gan_tpu_torch.train_sres import (build_config, generator_config, make_gan,
-                                                     train_step)
+    from long_video_gan_tpu_torch.ops import (filtered_lrelu_cuda, filtered_lrelu_exact,
+                                              filtered_lrelu_fused, filtered_lrelu_polyphase)
+    from long_video_gan_tpu_torch.ops.filtered_lrelu import filtered_lrelu
+    from long_video_gan_tpu_torch.train_sres import build_config, generator_config
     from long_video_gan_tpu_torch.utils.nvcc import find_nvcc
 
     device = torch.device("cuda")
+    t_start = time.perf_counter()
 
     # 1. Device and toolchain.
     phase("device")
@@ -77,46 +120,82 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, nvcc {nvcc}, "
           f"device {torch.cuda.get_device_name(0)}")
 
-    # 2. Build both kernels from the checkout's sources, one nvcc each, together.
+    # 2. Build every kernel's library from the checkout's sources, one nvcc
+    # each, all together.
     phase("build")
+    sources = {"K1": filtered_lrelu_cuda.SOURCE, "K2": filtered_lrelu_cuda.BWD_SOURCE,
+               "K3a": filtered_lrelu_fused.SOURCE, "K3b": filtered_lrelu_fused.SOURCE,
+               "K4": filtered_lrelu_exact.SOURCE, "K5": filtered_lrelu_polyphase.SOURCE}
+    libraries = (filtered_lrelu_cuda.library, filtered_lrelu_cuda.bwd_library,
+                 filtered_lrelu_fused.library, filtered_lrelu_polyphase.library)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        for future in [pool.submit(filtered_lrelu_cuda.library),
-                       pool.submit(filtered_lrelu_cuda.bwd_library)]:
+    with ThreadPoolExecutor(len(libraries)) as pool:
+        for future in [pool.submit(lib) for lib in libraries]:
             future.result()
-    print(f"built {filtered_lrelu_cuda.SOURCE} and {filtered_lrelu_cuda.BWD_SOURCE} "
-          f"in {time.perf_counter() - t0:.2f} s")
+    print(f"built {', '.join(sorted(set(sources.values())))} in "
+          f"{time.perf_counter() - t0:.2f} s")
 
-    # 3. K1 against plain at each layer geometry that launches it, at the
-    # frame counts its two paths give it: a generation segment and a training
-    # micro-batch (clips x seq_length frames, from the training config).
+    # 3-4. Every kernel against its plain version at each layer geometry
+    # that launches it, at the frame counts its paths give it: a generation
+    # segment and a training micro-batch (clips x seq_length frames, from the
+    # training config).
     c = build_config("", TRAIN_BATCH, GRAD_ACCUM, 1.0, "full")
     train_frames = TRAIN_BATCH // c["gan_kwargs"]["G_grad_accum"] * c["seq_length"]
     gen = torch.Generator(device="cpu").manual_seed(SEED)
     layers = selftest.plan_layers()
-    fwd = {}
-    for frames in (SEGMENT, train_frames):
-        phase(f"K1 (forward) vs plain, 144x256 plan, {frames} frames")
-        fwd[frames] = check_kernel(selftest.check_layer, layers, frames, device, gen, "K1")
+    checked = {}   # kernel -> {frames: (checks, ms, plain ms, bound ms, bound by)}
+    for kernel, sizes, f32_extra in (("K1", (SEGMENT, train_frames), (0, 3)),
+                                     ("K2", (train_frames,), (0, 3)),
+                                     ("K3a", (SEGMENT, train_frames), (3,)),
+                                     ("K3b", (train_frames,), (3,)),
+                                     ("K4", (SEGMENT,), EXACT_LAYERS),
+                                     ("K5", (SEGMENT,), EXACT_LAYERS)):
+        for frames in sizes:
+            phase(f"{kernel} vs plain, 144x256 plan, {frames} frames")
+            checked.setdefault(kernel, {})[frames] = check_kernel(
+                layers, frames, device, gen, kernel, f32_extra)
 
-    # 4. K2 against plain at training size.
-    phase(f"K2 (backward) vs plain, 144x256 plan, {train_frames} frames")
-    bwd = check_kernel(selftest.check_layer_bwd, layers, train_frames, device, gen, "K2")
-    name, layer = layers[3]
+    _, layer = layers[3]
     x = torch.randn((1, 2, 31, 38), device=device, requires_grad=True)
-    y = filtered_lrelu_cuda.filtered_lrelu_packed(
-        x, layer.up_filter.to(device), layer.down_filter.to(device), None,
-        up=layer.up_factor, down=layer.down_factor, padding=layer.padding, clamp=256.0)
-    (g,) = torch.autograd.grad(y.square().sum(), x, create_graph=True)
+    kw = dict(up=layer.up_factor, down=layer.down_factor, padding=layer.padding, clamp=256.0)
+    fu, fd = layer.up_filter.to(device), layer.down_filter.to(device)
+    for impl in ("packed", "fused"):
+        y = filtered_lrelu(x, fu, fd, None, impl=impl, **kw)
+        (g,) = torch.autograd.grad(y.square().sum(), x, create_graph=True)
+        try:
+            torch.autograd.grad(g.square().sum(), x)
+        except NotImplementedError as e:
+            print(f"impl={impl}: double backward raises: {str(e)[:60]}...")
+        else:
+            raise RuntimeError(f"a second-order gradient through impl={impl} did not raise")
+    x4 = torch.randn((1, 2, 40, 54), device=device, requires_grad=True)
+    _, l4 = layers[4]
+    y = filtered_lrelu(x4, l4.up_filter.to(device), l4.down_filter.to(device), None,
+                       up=2, down=2, padding=l4.padding, impl="pallas")
     try:
-        torch.autograd.grad(g.square().sum(), x)
+        torch.autograd.grad(y.sum(), x4)
     except NotImplementedError as e:
-        print(f"double backward raises: {str(e)[:60]}...")
+        print(f"impl=pallas: gradient raises: {str(e)[:60]}...")
     else:
-        raise RuntimeError("a second-order gradient through K2 did not raise")
+        raise RuntimeError("a gradient through K4 did not raise")
+    # K4 and K5 raise where the JAX kernels fail: the top crops of L3 (up 4,
+    # which K5 refuses first) and L13 (up 2).
+    for entry, fn in (("K4", lambda *a, **k: filtered_lrelu(*a, impl="pallas", **k)),
+                      ("K5", filtered_lrelu_polyphase.filtered_lrelu_pallas_v2)):
+        for i in (3, 13):
+            name, layer = layers[i]
+            xi = torch.randn((1, 2, layer.in_size[1] + 2, layer.in_size[0] + 2), device=device)
+            try:
+                fn(xi, layer.up_filter.to(device), layer.down_filter.to(device), None,
+                   up=layer.up_factor, down=layer.down_factor, padding=layer.padding)
+            except ValueError as e:
+                print(f"{entry} at {name}'s crop raises ValueError: {str(e)[:70]}...")
+            else:
+                raise RuntimeError(f"{entry} did not raise at {name}'s crop padding")
+    print(f"kernel checks done at {time.perf_counter() - t_start:.1f} s")
 
     # 5. Full-width two-stage generation through the port's entry point.
-    phase(f"generate_video: lres 36x64 + sres 144x256, {FRAMES} frames")
+    phase(f"generate_video: lres 36x64 + sres 144x256 (auto), {FRAMES} frames")
     wgen = torch.Generator(device="cpu").manual_seed(SEED)
     lres_G = init_weights_(generator_lres.VideoGenerator(device=device), wgen).eval()
     sres_G = init_weights_(generator_sres.VideoGenerator(**SRES_KWARGS, device=device),
@@ -124,24 +203,10 @@ def main() -> int:
     lres_G.requires_grad_(False)
     sres_G.requires_grad_(False)
     run_gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
-    filtered_lrelu_cuda.launches = filtered_lrelu_cuda.bwd_launches = 0
-    t0 = time.perf_counter()
-    video = torch.cat([seg.cpu() for seg in generate_video(
-        lres_G, sres_G, FRAMES, segment_length=SEGMENT, generator=run_gen, device=device)],
-        dim=2)
-    first_run_s = time.perf_counter() - t0
-    gen_launches = filtered_lrelu_cuda.launches
-    expected = len(selftest.KERNEL_LAYERS) * (FRAMES // SEGMENT)
-    print(f"video {tuple(video.shape)} finite {bool(torch.isfinite(video).all())} "
-          f"range [{video.min().item():.3f}, {video.max().item():.3f}] "
-          f"K1 launches {gen_launches} (expected {expected}), first run {first_run_s:.2f} s")
-    if tuple(video.shape) != (1, 3, FRAMES, 144, 256):
-        raise RuntimeError(f"unexpected video shape {tuple(video.shape)}")
-    if not bool(torch.isfinite(video).all()):
-        raise RuntimeError("video has non-finite values")
-    if gen_launches != expected or filtered_lrelu_cuda.bwd_launches != 0:
-        raise RuntimeError(f"generation launched K1 {gen_launches} times (expected {expected}) "
-                           f"and K2 {filtered_lrelu_cuda.bwd_launches} times (expected 0)")
+    n_seg = FRAMES // SEGMENT
+    launches = {}
+    launches["generate"] = generate_phase(lres_G, sres_G, run_gen, device,
+                                          {"K1": len(selftest.KERNEL_LAYERS) * n_seg})
 
     # Warm timings of the two stages (host clock around synchronised work).
     lr_len = FRAMES + 2 * CONTEXT
@@ -149,18 +214,8 @@ def main() -> int:
     t0 = time.perf_counter()
     lr_video = synthesize_lres(lres_G, lr_len, batch_size=1, generator=run_gen, device=device)
     torch.cuda.synchronize()
-    lres_s = time.perf_counter() - t0
-    sres_runs = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        for seg in super_resolve(sres_G, lr_video, FRAMES, segment_length=SEGMENT,
-                                 generator=run_gen):
-            seg.cpu()
-        sres_runs.append(time.perf_counter() - t0)
-    sres_s = sorted(sres_runs)[1]
-    print(f"lres {lr_len} frames 36x64: {lres_s:.3f} s; sres {FRAMES} frames 144x256 "
-          f"(batch 1, segment {SEGMENT}, context {CONTEXT}): {FRAMES / sres_s:.2f} frames/s "
-          f"(median of 3: {', '.join(f'{s:.3f}' for s in sres_runs)} s)")
+    print(f"lres {lr_len} frames 36x64: {time.perf_counter() - t0:.3f} s")
+    time_sres("auto", sres_G, lr_video, run_gen)
 
     # 6. Model-level check: one full-width segment, kernel policy vs plain.
     phase("model check: one sres segment, resample_impl auto vs conv")
@@ -170,17 +225,218 @@ def main() -> int:
     window = lr_video[:, :, :SEGMENT + 2 * CONTEXT]
     z = torch.randn((1, sres_G.latent_z_dim), generator=run_gen).to(device)
     with torch.inference_mode(), selftest.tf32_off():
-        model_err = rel_err(sres_G(window, z=z), plain_G(window, z=z))
+        want = plain_G(window, z=z)
+        model_err = rel_err(sres_G(window, z=z), want)
     print(f"segment rel_err {model_err:.3e} (tol {MODEL_TOL})")
     if not math.isfinite(model_err) or model_err > MODEL_TOL:
         raise RuntimeError(f"auto vs plain segment rel_err {model_err} > {MODEL_TOL}")
-    del lres_G, sres_G, plain_G, video, lr_video
+
+    # 6b. The same generation with every SynthesisLayer on "fused" (K3a; the
+    # ToRGB identity resample stays composed).
+    phase(f"generate_video: lres 36x64 + sres 144x256 (fused), {FRAMES} frames")
+    fused_G = generator_sres.VideoGenerator(**{**SRES_KWARGS, "resample_impl": "fused"},
+                                            device=device).eval()
+    fused_G.load_state_dict(sres_G.state_dict())
+    fused_G.requires_grad_(False)
+    n_fused = len(selftest.served_layers("K3a", layers))
+    launches["generate_fused"] = generate_phase(lres_G, fused_G, run_gen, device,
+                                                {"K3a": n_fused * n_seg})
+    time_sres("fused", fused_G, lr_video, run_gen)
+    with torch.inference_mode(), selftest.tf32_off():
+        fused_err = rel_err(fused_G(window, z=z), want)
+    print(f"fused segment rel_err vs conv {fused_err:.3e} (tol {MODEL_TOL})")
+    if not math.isfinite(fused_err) or fused_err > MODEL_TOL:
+        raise RuntimeError(f"fused vs plain segment rel_err {fused_err} > {MODEL_TOL}")
+    del lres_G, sres_G, plain_G, fused_G, lr_video, want
     torch.cuda.empty_cache()
 
-    # 7. Full-width sres training through the CLI's step.
+    # 7-8. Full-width sres training through the CLI's step, G on "auto", and
+    # a G micro-batch's parameter gradients against the plain path.
+    n_layers = len(selftest.KERNEL_LAYERS)
+    accum_G, accum_D = c["gan_kwargs"]["G_grad_accum"], c["gan_kwargs"]["D_grad_accum"]
+    gan, batches, train_gen, launches["train"] = train_phase(
+        c, device, "auto", TRAIN_STEPS, checked, train_frames,
+        {"K1": TRAIN_STEPS * n_layers * (accum_G + accum_D),
+         "K2": TRAIN_STEPS * n_layers * accum_G})
+    grad_phase(gan, c, device, batches, train_gen, "auto", {"K2": n_layers})
+
+    # 9. Train to generate: save the trained G_ema, load it, generate.
+    phase("trained G_ema: save_generator, load_generator, one 16-frame segment")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/G-ema.lvg"
+        save_generator(path, gan.G_ema, generator_config(c))
+        G_loaded, config = load_generator(path, device=device)
+    for key, value in gan.G_ema.state_dict().items():
+        if not torch.equal(G_loaded.state_dict()[key], value):
+            raise RuntimeError(f"G_ema round trip changed {key}")
+    lr_window = next(batches)["lr_video"][:1, :, :4].repeat(1, 1, 6, 1, 1)
+    with torch.inference_mode():
+        seg = G_loaded(lr_window, z=torch.randn((1, G_loaded.latent_z_dim), device=device))
+    print(f"segment {tuple(seg.shape)} finite {bool(torch.isfinite(seg).all())} "
+          f"(config kind {config['kind']})")
+    if tuple(seg.shape) != (1, 3, SEGMENT, 144, 256) or not bool(torch.isfinite(seg).all()):
+        raise RuntimeError("the trained G_ema did not generate a finite 16-frame segment")
+    del gan, batches, G_loaded, seg
+    torch.cuda.empty_cache()
+
+    # 9b. Training with G on "fused": K3a in the G and D phases' generator
+    # passes, K3b in the G phase's backward.
+    fc = {**c, "gan_kwargs": {**c["gan_kwargs"], "G_kwargs": {
+        **c["gan_kwargs"]["G_kwargs"], "resample_impl": "fused"}}}
+    gan, batches, train_gen, launches["train_fused"] = train_phase(
+        fc, device, "fused", FUSED_TRAIN_STEPS, checked, train_frames,
+        {"K3a": FUSED_TRAIN_STEPS * n_fused * (accum_G + accum_D),
+         "K3b": FUSED_TRAIN_STEPS * n_fused * accum_G})
+    grad_phase(gan, fc, device, batches, train_gen, "fused", {"K3b": n_fused})
+    del gan, batches
+    torch.cuda.empty_cache()
+
+    # 10. K4 through SynthesisLayer(resample_impl="pallas") and K5 through
+    # its entry point, at the full-width layers they serve.
+    launches["pallas"], launches["pallas_v2"] = forward_only_phase(layers, device, wgen)
+
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax",
+                                                                   "long_video_gan_tpu"))
+    if leaked:
+        raise RuntimeError(f"the port imported the JAX side: {leaked[:5]}")
+
+    names = {"K1": "filtered_lrelu_fwd", "K2": "filtered_lrelu_bwd",
+             "K3a": "filtered_lrelu_fused_fwd", "K3b": "filtered_lrelu_fused_bwd",
+             "K4": "filtered_lrelu_exact", "K5": "filtered_lrelu_polyphase"}
+    entries = []
+    for kernel, by_frames in checked.items():
+        # The times at the largest size a path gives the kernel.
+        _, ms, plain_ms, bound_ms, bound_by = by_frames[max(by_frames)]
+        by_path = {p: counts[kernel] for p, counts in launches.items() if counts[kernel]}
+        entry = {
+            "name": names[kernel],
+            "route": "cuda",
+            "source": sources[kernel],
+            "replaces": REPLACES[kernel],
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": max(k.max_abs_err for checks, *_ in by_frames.values()
+                               for k in checks),
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None,
+            "frames": max(by_frames),
+        }
+        if len(by_frames) > 1:
+            entry["ms_by_frames"] = {f: v[1:4] for f, v in by_frames.items()}
+        entries.append(entry)
+    for entry in entries:
+        if not entry["launches"]:
+            raise RuntimeError(f"{entry['name']} was launched no time on its paths")
+    print(f"whole script {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": entries}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def check_kernel(layers, frames: int, device, gen, kernel: str, f32_extra=()):
+    """`kernel` against its plain version at every plan layer its path runs
+    it at (K4/K5: EXACT_LAYERS), in that layer's type and timed, and
+    untimed in f32 at the `f32_extra` layers not already checked in f32;
+    raises if any disagrees. Returns (the checks, kernel ms, plain ms, bound
+    ms, what bounds it), the times summed over the timed checks."""
+    import torch
+
+    from long_video_gan_tpu_torch import selftest
+
+    served = selftest.served_layers(kernel, layers)
+    indices = EXACT_LAYERS if kernel in ("K4", "K5") else served
+    if not set(indices) <= set(served):
+        raise RuntimeError(f"{kernel} does not serve layers {sorted(set(indices) - set(served))}")
+    checks = [selftest.check_layer(layers[i][1], layers[i][0], frames,
+                                   selftest.layer_dtype(layers[i][1]), device, gen, time_it=True,
+                                   kernel=kernel) for i in indices]
+    checks += [selftest.check_layer(layers[i][1], layers[i][0], frames, torch.float32, device,
+                                    gen, kernel=kernel)
+               for i in f32_extra
+               if i not in indices or selftest.layer_dtype(layers[i][1]) != torch.float32]
+    for c in checks:
+        timing = ("" if c.ms is None else f" kernel {c.ms:.3f} ms plain {c.plain_ms:.3f} ms "
+                  f"bound {c.bound_ms:.3f} ms ({c.bound_by})")
+        print(f"{kernel} {c.name:<16} {c.dtype:<8} out {c.shape} rel_err {c.rel_err:.2e} "
+              f"(tol {c.tol:g}){timing} {'ok' if c.ok else 'FAIL'}")
+    failed = [c.name + "/" + c.dtype for c in checks if not c.ok]
+    if failed:
+        raise RuntimeError(f"{kernel} disagrees with its plain version at {failed}")
+    timed = [c for c in checks if c.ms is not None]
+    ms, plain_ms, bound_ms = (sum(getattr(c, a) for c in timed)
+                              for a in ("ms", "plain_ms", "bound_ms"))
+    by_ops = sum(c.bound_ms for c in timed if c.bound_by == "operations")
+    bound_by = "operations" if by_ops >= bound_ms / 2 else "bytes"
+    print(f"{kernel} at {frames} frames, {len(timed)} layers: kernel {ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})")
+    return checks, ms, plain_ms, bound_ms, bound_by
+
+
+def generate_phase(lres_G, sres_G, run_gen, device, expected: dict) -> dict:
+    """`generate_video` of FRAMES frames with the counts reset just before;
+    raises unless the video is finite, of the expected shape, and the
+    kernels launched exactly `expected` times (others none). Returns the
+    counts."""
+    import torch
+
+    from long_video_gan_tpu_torch.generate import generate_video
+
+    reset_counts()
+    t0 = time.perf_counter()
+    video = torch.cat([seg.cpu() for seg in generate_video(
+        lres_G, sres_G, FRAMES, segment_length=SEGMENT, generator=run_gen, device=device)],
+        dim=2)
+    first_run_s = time.perf_counter() - t0
+    counts = read_counts()
+    print(f"video {tuple(video.shape)} finite {bool(torch.isfinite(video).all())} "
+          f"range [{video.min().item():.3f}, {video.max().item():.3f}] "
+          f"launches {counts} (expected {expected}), first run {first_run_s:.2f} s")
+    if tuple(video.shape) != (1, 3, FRAMES, 144, 256):
+        raise RuntimeError(f"unexpected video shape {tuple(video.shape)}")
+    if not bool(torch.isfinite(video).all()):
+        raise RuntimeError("video has non-finite values")
+    if counts != {k: expected.get(k, 0) for k in counts}:
+        raise RuntimeError(f"generation launched {counts}, expected {expected}")
+    return counts
+
+
+def time_sres(label: str, sres_G, lr_video, run_gen) -> None:
+    """sres frames/s over FRAMES frames, median of 3 (host clock; the
+    segments' `.cpu()` synchronises)."""
+    from long_video_gan_tpu_torch.generate import super_resolve
+
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for seg in super_resolve(sres_G, lr_video, FRAMES, segment_length=SEGMENT,
+                                 generator=run_gen):
+            seg.cpu()
+        runs.append(time.perf_counter() - t0)
+    print(f"sres ({label}) {FRAMES} frames 144x256 (batch 1, segment {SEGMENT}, context "
+          f"{CONTEXT}): {FRAMES / sorted(runs)[1]:.2f} frames/s "
+          f"(median of 3: {', '.join(f'{s:.3f}' for s in runs)} s)")
+
+
+def train_phase(c: dict, device, label: str, steps: int, checked: dict, train_frames: int,
+                expected: dict):
+    """`steps` full-preset training steps on seeded synthetic videos made on
+    the card, with the counts reset just before; raises unless losses are
+    finite, G, D and G_ema change, the kernels launched exactly `expected`
+    times (others none) and only at the shapes checked at `train_frames`.
+    Returns (the trainer, its batches, its generator, the counts)."""
+    import torch
+
+    from long_video_gan_tpu_torch.train.stats import Collector
+    from long_video_gan_tpu_torch.train_sres import make_gan, train_step
+
     micro = TRAIN_BATCH // GRAD_ACCUM
-    phase(f"train_sres full preset: batch {TRAIN_BATCH}, grad_accum {GRAD_ACCUM} "
-          f"(micro-batch {micro}), {TRAIN_STEPS} steps")
+    phase(f"train_sres full preset, G {label}: batch {TRAIN_BATCH}, grad_accum {GRAD_ACCUM} "
+          f"(micro-batch {micro}), {steps} steps")
     gan = make_gan(c, device)
     gan.init_state(torch.Generator().manual_seed(SEED))
     data_gen = torch.Generator(device=device).manual_seed(SEED + 2)
@@ -205,22 +461,25 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     # Record the shape of every kernel output in training, to hold it to the
     # shapes checked above.
-    seen = {"filtered_lrelu_fwd_cuda": set(), "filtered_lrelu_bwd_cuda": set()}
+    wrapped = {"K1": "filtered_lrelu_fwd_cuda", "K2": "filtered_lrelu_bwd_cuda",
+               "K3a": "fused_fwd_cuda", "K3b": "fused_bwd_cuda"}
+    seen = {k: set() for k in expected}
+    originals = {}
+    for kernel in expected:
+        module = counters()[kernel][0]
+        fn = getattr(module, wrapped[kernel])
+        originals[kernel] = (module, fn)
 
-    def recording(fn, shapes):
-        def wrapped(*args, **kwargs):
-            out = fn(*args, **kwargs)
-            shapes.add(tuple(out.shape))
+        def recording(*args, _fn=fn, _shapes=seen[kernel], **kwargs):
+            out = _fn(*args, **kwargs)
+            _shapes.add(tuple(out.shape))
             return out
-        return wrapped
 
-    wrappers = {key: getattr(filtered_lrelu_cuda, key) for key in seen}
-    for key, fn in wrappers.items():
-        setattr(filtered_lrelu_cuda, key, recording(fn, seen[key]))
-    filtered_lrelu_cuda.launches = filtered_lrelu_cuda.bwd_launches = 0
+        setattr(module, wrapped[kernel], recording)
+    reset_counts()
     step_s = []
     try:
-        for step in range(TRAIN_STEPS):
+        for step in range(steps):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for stats in train_step(gan, train_gen, c, step, batches):
@@ -228,44 +487,48 @@ def main() -> int:
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t0)
     finally:
-        for key, fn in wrappers.items():
-            setattr(filtered_lrelu_cuda, key, fn)
-    train_launches = filtered_lrelu_cuda.launches
-    train_bwd_launches = filtered_lrelu_cuda.bwd_launches
+        for kernel, (module, fn) in originals.items():
+            setattr(module, wrapped[kernel], fn)
+    counts = read_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     collector.update()
-    n_layers = len(selftest.KERNEL_LAYERS)
-    want_k1 = TRAIN_STEPS * n_layers * (c["gan_kwargs"]["G_grad_accum"]
-                                        + c["gan_kwargs"]["D_grad_accum"])
-    want_k2 = TRAIN_STEPS * n_layers * c["gan_kwargs"]["G_grad_accum"]
     losses = {k: collector.mean(k) for k in ("loss/G_loss", "loss/D_loss", "loss/r1_loss",
                                              "loss/r1_penalty", "progress/augment_p")}
     print("losses " + ", ".join(f"{k} {v:.5g}" for k, v in losses.items()))
     print(f"step seconds {', '.join(f'{s:.3f}' for s in step_s)} (step 0 runs R1 and ADA); "
-          f"warm sec/step (steps 1-{TRAIN_STEPS - 1}) "
-          f"{sum(step_s[1:]) / (TRAIN_STEPS - 1):.3f}; peak memory {peak_gib:.2f} GiB")
-    print(f"K1 launches {train_launches} (expected {want_k1}), "
-          f"K2 launches {train_bwd_launches} (expected {want_k2})")
+          f"warm sec/step (steps 1-{steps - 1}) {sum(step_s[1:]) / (steps - 1):.3f}; "
+          f"peak memory {peak_gib:.2f} GiB")
+    print(f"launches {counts} (expected {expected})")
     if not all(math.isfinite(v) for v in losses.values()):
         raise RuntimeError(f"non-finite training statistics: {losses}")
-    if train_launches != want_k1 or train_bwd_launches != want_k2:
+    if counts != {k: expected.get(k, 0) for k in counts}:
         raise RuntimeError("training launched the kernels other than its micro-batches imply")
-    for key, (checks, _, _) in (("filtered_lrelu_fwd_cuda", fwd[train_frames]),
-                                ("filtered_lrelu_bwd_cuda", bwd)):
-        checked = {k.shape for k in checks if k.dtype == "bfloat16"}
-        if seen[key] != checked:
-            raise RuntimeError(f"training ran {key} at {sorted(seen[key] - checked)}, "
-                               f"shapes not checked against its plain version")
-    print(f"training ran K1 and K2 at the {train_frames}-frame shapes checked above")
+    for kernel, shapes in seen.items():
+        checks = checked[kernel][train_frames][0]
+        want = {k.shape for k in checks if k.ms is not None}
+        if shapes != want:
+            raise RuntimeError(f"training ran {kernel} at {sorted(shapes ^ want)}, shapes not "
+                               f"checked against its plain version")
+    print(f"training ran {', '.join(seen)} at the {train_frames}-frame shapes checked above")
     for name, module in (("G", gan.G), ("D", gan.D), ("G_ema", gan.G_ema)):
         params = [k for k, _ in module.named_parameters()]
         state = module.state_dict()
         if all(torch.equal(snapshot[name][k], state[k]) for k in params):
             raise RuntimeError(f"training left {name} unchanged")
     print("G, D and G_ema changed")
+    return gan, batches, train_gen, counts
 
-    # 8. A G micro-batch's parameter gradients: auto (K1/K2) vs conv (plain).
-    phase(f"gradient check: one G micro-batch ({GRAD_CLIPS} clips), auto vs conv, TF32 off")
+
+def grad_phase(gan, c: dict, device, batches, train_gen, label: str, expected: dict) -> None:
+    """A G micro-batch of GRAD_CLIPS clips: the parameter gradients of the
+    trainer's G path against the conv path (TF32 off); raises unless the
+    backward kernel launched `expected` times and they agree to GRAD_TOL."""
+    import torch
+
+    from long_video_gan_tpu_torch import selftest
+    from long_video_gan_tpu_torch.train_sres import make_gan
+
+    phase(f"gradient check: one G micro-batch ({GRAD_CLIPS} clips), {label} vs conv, TF32 off")
     plain_gan = make_gan({**c, "gan_kwargs": {**c["gan_kwargs"], "G_kwargs": {
         **c["gan_kwargs"]["G_kwargs"], "resample_impl": "conv"}}}, device)
     plain_gan.G.load_state_dict(gan.G.state_dict())
@@ -274,7 +537,7 @@ def main() -> int:
     lr_chunk = next(batches)["lr_video"][:GRAD_CLIPS]
     z = torch.randn((GRAD_CLIPS, gan.G.latent_z_dim), generator=train_gen, device=device)
     grads = []
-    filtered_lrelu_cuda.launches = filtered_lrelu_cuda.bwd_launches = 0
+    reset_counts()
     with selftest.tf32_off():
         for trainer in (gan, plain_gan):
             trainer.D.requires_grad_(False)
@@ -284,102 +547,68 @@ def main() -> int:
             g = torch.autograd.grad(loss, params, allow_unused=True)
             grads.append(torch.cat([(t if t is not None else torch.zeros_like(p)).flatten()
                                     .float() for t, p in zip(g, params)]))
-    if filtered_lrelu_cuda.bwd_launches != n_layers:
-        raise RuntimeError("the auto gradient did not run through K2")
+    counts = read_counts()
+    if any(counts[k] != n for k, n in expected.items()):
+        raise RuntimeError(f"the {label} gradient launched {counts}, expected {expected}")
     grad_err = rel_err(grads[0], grads[1])
     print(f"G gradient rel_err {grad_err:.3e} over {grads[0].numel()} parameters "
           f"(tol {GRAD_TOL})")
     if not math.isfinite(grad_err) or grad_err > GRAD_TOL:
-        raise RuntimeError(f"auto vs plain G gradient rel_err {grad_err} > {GRAD_TOL}")
-    del plain_gan, grads
-
-    # 9. Train to generate: save the trained G_ema, load it, generate.
-    phase("trained G_ema: save_generator, load_generator, one 16-frame segment")
-    with tempfile.TemporaryDirectory() as tmp:
-        path = f"{tmp}/G-ema.lvg"
-        save_generator(path, gan.G_ema, generator_config(c))
-        G_loaded, config = load_generator(path, device=device)
-    for key, value in gan.G_ema.state_dict().items():
-        if not torch.equal(G_loaded.state_dict()[key], value):
-            raise RuntimeError(f"G_ema round trip changed {key}")
-    lr_window = next(batches)["lr_video"][:1, :, :4].repeat(1, 1, 6, 1, 1)
-    with torch.inference_mode():
-        seg = G_loaded(lr_window, z=torch.randn((1, G_loaded.latent_z_dim), device=device))
-    print(f"segment {tuple(seg.shape)} finite {bool(torch.isfinite(seg).all())} "
-          f"(config kind {config['kind']})")
-    if tuple(seg.shape) != (1, 3, SEGMENT, 144, 256) or not bool(torch.isfinite(seg).all()):
-        raise RuntimeError("the trained G_ema did not generate a finite 16-frame segment")
-
-    leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax",
-                                                                   "long_video_gan_tpu"))
-    if leaked:
-        raise RuntimeError(f"the port imported the JAX side: {leaked[:5]}")
-
-    _, kernel_ms, plain_ms = fwd[train_frames]
-    bwd_checks, bwd_ms, bwd_plain_ms = bwd
-    print(json.dumps({"kernels": [
-        {
-            "name": "filtered_lrelu_fwd",
-            "route": "cuda",
-            "source": filtered_lrelu_cuda.SOURCE,
-            "replaces": "long_video_gan_tpu/ops/pallas/filtered_lrelu_packed.py:212",
-            "launches": gen_launches + train_launches,
-            "launches_by_path": {"generate": gen_launches, "train": train_launches},
-            "max_abs_err": max(k.max_abs_err for checks, _, _ in fwd.values() for k in checks),
-            "ms": kernel_ms,
-            "plain_ms": plain_ms,
-            "ms_by_path": {"generate": fwd[SEGMENT][1:], "train": fwd[train_frames][1:]},
-        },
-        {
-            "name": "filtered_lrelu_bwd",
-            "route": "cuda",
-            "source": filtered_lrelu_cuda.BWD_SOURCE,
-            "replaces": "long_video_gan_tpu/ops/pallas/filtered_lrelu_packed.py:305",
-            "launches": train_bwd_launches,
-            "launches_by_path": {"generate": 0, "train": train_bwd_launches},
-            "max_abs_err": max(k.max_abs_err for k in bwd_checks),
-            "ms": bwd_ms,
-            "plain_ms": bwd_plain_ms,
-        },
-    ]}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu",
-                                             "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}))
-    return 0
+        raise RuntimeError(f"{label} vs plain G gradient rel_err {grad_err} > {GRAD_TOL}")
 
 
-def check_kernel(check, layers, frames: int, device, gen, kernel: str):
-    """`check` (a selftest layer check) at every bf16 layer that launches the
-    kernel, timed, and at L0 and L3 in f32; raises if any disagrees. Returns
-    (the checks, kernel ms, plain ms summed over L3-L13)."""
+def forward_only_phase(layers, device, wgen) -> tuple[dict, dict]:
+    """K4 through the full-width SynthesisNetwork's layers on
+    resample_impl="pallas", and K5 through `filtered_lrelu_pallas_v2` with
+    each such layer's arguments, at EXACT_LAYERS with SEGMENT frames; each
+    path with the counts reset just before. Returns the two paths' counts."""
     import torch
 
     from long_video_gan_tpu_torch import selftest
+    from long_video_gan_tpu_torch.models.common import init_weights_
+    from long_video_gan_tpu_torch.models.generator_sres import SynthesisNetwork
+    from long_video_gan_tpu_torch.ops.filtered_lrelu_polyphase import filtered_lrelu_pallas_v2
 
-    checks = [check(layers[i][1], layers[i][0], frames, torch.bfloat16, device, gen,
-                    time_it=True) for i in selftest.KERNEL_LAYERS]
-    checks += [check(layers[i][1], layers[i][0], frames, torch.float32, device, gen)
-               for i in (0, 3)]
-    kernel_ms, plain_ms = report_checks(checks, selftest.TOLS, kernel)
-    print(f"{kernel} L3-L13 at {frames} frames: kernel {kernel_ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms")
-    return checks, kernel_ms, plain_ms
-
-
-def report_checks(checks, tols, kernel: str) -> tuple[float, float]:
-    """Print each layer check; raise if any failed; (kernel ms, plain ms)
-    summed over the timed checks."""
-    import torch
-
-    for c in checks:
-        timing = "" if c.ms is None else f" kernel {c.ms:.3f} ms plain {c.plain_ms:.3f} ms"
-        print(f"{kernel} {c.name:<16} {c.dtype:<8} out {c.shape} rel_err {c.rel_err:.2e} "
-              f"(tol {tols[getattr(torch, c.dtype)]:g}){timing} {'ok' if c.ok else 'FAIL'}")
-    failed = [c.name + "/" + c.dtype for c in checks if not c.ok]
-    if failed:
-        raise RuntimeError(f"{kernel} disagrees with its plain version at {failed}")
-    timed = [c for c in checks if c.ms is not None]
-    return sum(c.ms for c in timed), sum(c.plain_ms for c in timed)
+    phase(f"impl=pallas (K4) through SynthesisLayer, filtered_lrelu_pallas_v2 (K5), "
+          f"layers {EXACT_LAYERS}, {SEGMENT} frames")
+    net = init_weights_(SynthesisNetwork(w_dim=512, img_width=256, img_height=144,
+                                         img_channels=3, cond_channels=27, num_fp16_res=4,
+                                         resample_impl="pallas", device=device), wgen).eval()
+    inputs = {}
+    for i in EXACT_LAYERS:
+        layer = net.layers[i]
+        w_in, h_in = layer.in_size
+        inputs[i] = (torch.randn((SEGMENT, layer.in_channels, h_in, w_in), generator=wgen)
+                     .to(device), torch.randn((SEGMENT, 512), generator=wgen).to(device))
+    reset_counts()
+    with torch.inference_mode():
+        outs = {i: net.layers[i](*inputs[i]) for i in EXACT_LAYERS}
+    torch.cuda.synchronize()
+    k4 = read_counts()
+    reset_counts()
+    with torch.inference_mode():
+        for i in EXACT_LAYERS:
+            layer = net.layers[i]
+            x = torch.randn((SEGMENT, layer.out_channels, layer.in_size[1] + layer.kernel - 1,
+                             layer.in_size[0] + layer.kernel - 1),
+                            generator=wgen).to(device, selftest.layer_dtype(layer))
+            y = filtered_lrelu_pallas_v2(x, layer.up_filter, layer.down_filter,
+                                         layer.bias.to(x.dtype), up=layer.up_factor,
+                                         down=layer.down_factor, padding=layer.padding,
+                                         gain=1.0 if layer.is_torgb else math.sqrt(2.0),
+                                         slope=1.0 if layer.is_torgb else 0.2,
+                                         clamp=layer.conv_clamp)
+            outs[f"v2_{i}"] = y
+    torch.cuda.synchronize()
+    k5 = read_counts()
+    n = len(EXACT_LAYERS)
+    print(f"K4 path launches {k4}, K5 path launches {k5} (expected {n} each)")
+    if k4 != {**{k: 0 for k in k4}, "K4": n} or k5 != {**{k: 0 for k in k5}, "K5": n}:
+        raise RuntimeError("the K4/K5 paths launched other kernels or counts")
+    for key, y in outs.items():
+        if not bool(torch.isfinite(y).all()):
+            raise RuntimeError(f"non-finite output at {key}")
+    return k4, k5
 
 
 if __name__ == "__main__":

@@ -104,9 +104,8 @@ def main(argv: Optional[list[str]] = None) -> None:
     ap.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu")
     args = ap.parse_args(argv)
 
-    from long_video_gan_tpu.utils.video import save_image_grid, write_video_grid
-
     from .io.checkpoint import load_generator
+    from .utils.video import save_image_grid, write_video_grid
 
     device = torch.device(args.device)
     out_path = Path(args.output)

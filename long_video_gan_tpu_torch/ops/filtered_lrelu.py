@@ -11,18 +11,26 @@ Counterpart of `long_video_gan_tpu/ops/filtered_lrelu.py`. Semantics:
 
   out_w = (in_w*up + px0 + px1 - (fu_w-1) - (fd_w-1) + (down-1)) // down
 
-`filtered_lrelu_composed` is that sequence in plain PyTorch, and the plain
-version of the Hopper kernel in `filtered_lrelu_cuda.py`. `impl` selects:
+`filtered_lrelu_composed` is that sequence in plain PyTorch. `impl` selects,
+as in the JAX package:
 
   "conv", "matrix"  the composed path
-  "packed"          the kernels (the JAX package's lane-packed Pallas kernels on
-                    the TPU): K1 forward, K2 backward, first-order
-                    differentiable; a CPU tensor takes the plain versions
-  "fused", "pallas" raise: their kernels are not ported yet (ROADMAP.md
-                    Queue 2, K3 and K4)
+  "packed"          K1 forward, K2 backward (`filtered_lrelu_cuda.py`; the
+                    JAX package's lane-packed Pallas kernels), first-order
+                    differentiable
+  "fused"           K3a forward, K3b backward (`filtered_lrelu_fused.py`; the
+                    whole-image operator-product kernels), first-order
+                    differentiable, with the TPU kernel's bf16 stage rounding
+  "pallas"          K4 (`filtered_lrelu_exact.py`; the f32-exact kernel),
+                    forward only; a top crop of `up` or more rows raises, where
+                    the JAX kernel fails
 
-Identity resamples (up == down == 1 with 1-tap filters) and `flip_filter`
-always take the composed path, as in the JAX package.
+For "packed" and "fused", identity resamples (up == down == 1 with 1-tap
+filters) and `flip_filter` take the composed path, as in the JAX package;
+"pallas" always takes K4. A CPU tensor takes each kernel's plain version in
+its wrapper; a CUDA tensor launches the kernel or raises. The fifth kernel,
+K5 (`filtered_lrelu_polyphase.py`), has no `impl`: as in the JAX package, it
+is reached through its own entry point.
 """
 
 from __future__ import annotations
@@ -60,20 +68,23 @@ def filtered_lrelu(
     impl: str = "conv",
 ) -> torch.Tensor:
     assert x.ndim == 4, f"expected NCHW input, got {tuple(x.shape)}"
-    if impl in ("fused", "pallas"):
-        raise NotImplementedError(
-            f"filtered_lrelu impl={impl!r}: its kernel is not ported yet "
-            f"(ROADMAP.md Queue 2, {'K3' if impl == 'fused' else 'K4'}); "
-            f"use impl='packed' or 'conv'")
-    if impl == "packed":
+    kw = dict(up=up, down=down, padding=padding, gain=gain, slope=slope, clamp=clamp)
+    if impl == "pallas":
+        from .filtered_lrelu_exact import filtered_lrelu_exact
+
+        return filtered_lrelu_exact(x, fu, fd, b, **kw)
+    if impl in ("packed", "fused"):
         fu_w, fu_h = filter_size(fu)
         fd_w, fd_h = filter_size(fd)
         trivial = up == 1 and down == 1 and fu_w * fu_h == 1 and fd_w * fd_h == 1
         if not (trivial or flip_filter):
-            from .filtered_lrelu_cuda import filtered_lrelu_packed
+            if impl == "packed":
+                from .filtered_lrelu_cuda import filtered_lrelu_packed
 
-            return filtered_lrelu_packed(x, fu, fd, b, up=up, down=down, padding=padding,
-                                         gain=gain, slope=slope, clamp=clamp)
+                return filtered_lrelu_packed(x, fu, fd, b, **kw)
+            from .filtered_lrelu_fused import filtered_lrelu_fused
+
+            return filtered_lrelu_fused(x, fu, fd, b, **kw)
     elif impl not in ("conv", "matrix"):
         raise ValueError(f"unknown filtered_lrelu impl: {impl!r}")
     return filtered_lrelu_composed(x, fu, fd, b, up=up, down=down, padding=padding,

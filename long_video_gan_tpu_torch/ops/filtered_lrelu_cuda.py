@@ -37,34 +37,27 @@ launches = 0
 bwd_launches = 0
 
 
+# Geometry arguments of every filtered_lrelu kernel's C function: planes,
+# in_h, in_w, out_h, out_w, up, down, px0, px1, py0, py1, taps, fu_taps,
+# fd_taps, gain, slope, clamp.
+GEOMETRY_ARGS = ([ctypes.c_int] * 11 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+                 + [ctypes.c_float] * 3)
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """Build (at first use) and load the forward kernel's library."""
-    lib = load_library("filtered_lrelu_fwd.cu")
-    args = ([ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 11
-            + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-            + [ctypes.c_float] * 3 + [ctypes.c_void_p])
-    for fn in (lib.lvg_filtered_lrelu_fwd_f32, lib.lvg_filtered_lrelu_fwd_bf16):
-        fn.argtypes = args
-        fn.restype = ctypes.c_int
-    lib.lvg_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.lvg_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    args = [ctypes.c_void_p] * 2 + GEOMETRY_ARGS + [ctypes.c_void_p]
+    return load_library("filtered_lrelu_fwd.cu", {"lvg_filtered_lrelu_fwd_f32": args,
+                                                  "lvg_filtered_lrelu_fwd_bf16": args})
 
 
 @functools.lru_cache(maxsize=None)
 def bwd_library() -> ctypes.CDLL:
     """Build (at first use) and load the backward kernel's library."""
-    lib = load_library("filtered_lrelu_bwd.cu")
-    args = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 11
-            + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-            + [ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_void_p])
-    for fn in (lib.lvg_filtered_lrelu_bwd_f32, lib.lvg_filtered_lrelu_bwd_bf16):
-        fn.argtypes = args
-        fn.restype = ctypes.c_int
-    lib.lvg_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.lvg_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    args = [ctypes.c_void_p] * 3 + GEOMETRY_ARGS + [ctypes.c_int, ctypes.c_void_p]
+    return load_library("filtered_lrelu_bwd.cu", {"lvg_filtered_lrelu_bwd_f32": args,
+                                                  "lvg_filtered_lrelu_bwd_bf16": args})
 
 
 def filtered_lrelu_packed(x: torch.Tensor, fu: Filter = None, fd: Filter = None,
@@ -145,7 +138,8 @@ def _kernel_taps(f: Filter, device: torch.device, scale: float) -> torch.Tensor:
     return f.flip(0) * scale
 
 
-def _check_input(x: torch.Tensor, what: str) -> None:
+def check_input(x: torch.Tensor, what: str) -> None:
+    """Raise unless `x` is a contiguous f32 or bf16 NCHW tensor on the card."""
     if x.device.type != "cuda":
         raise ValueError(f"filtered_lrelu kernel needs a CUDA tensor, got {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -155,7 +149,10 @@ def _check_input(x: torch.Tensor, what: str) -> None:
                          f"got shape {tuple(x.shape)} strides {x.stride()}")
 
 
-def _geometry(x: torch.Tensor, fu: Filter, fd: Filter, up, down, padding):
+def kernel_geometry(x: torch.Tensor, fu: Filter, fd: Filter, up, down, padding):
+    """(padding, out_h, out_w, taps, fu taps, fd taps) of a kernel launch on
+    `x`: the f32 taps on x's device, fu flipped and times `up`, then fd
+    flipped."""
     if not (isinstance(up, int) and isinstance(down, int) and up >= 1 and down >= 1):
         raise ValueError(f"up and down must be positive ints, got {up!r}, {down!r}")
     pad = parse_padding(padding)
@@ -168,7 +165,8 @@ def _geometry(x: torch.Tensor, fu: Filter, fd: Filter, up, down, padding):
     return pad, out_h, out_w, taps, fu_taps.numel(), fd_taps.numel()
 
 
-def _raise_on_error(lib: ctypes.CDLL, rc: int, which: str) -> None:
+def raise_on_error(lib: ctypes.CDLL, rc: int, which: str) -> None:
+    """Turn a launch's cudaError_t into a raise."""
     if rc != 0:
         raise RuntimeError(f"filtered_lrelu {which} kernel launch failed: "
                            f"{lib.lvg_cuda_error_string(rc).decode()} (cudaError {rc})")
@@ -180,8 +178,8 @@ def filtered_lrelu_fwd_cuda(x: torch.Tensor, fu: Filter, fd: Filter, up: int, do
     """Launch K1 on bias-added NCHW `x` (f32 or bf16, contiguous, on a CUDA
     device); returns a new tensor of the same dtype."""
     global launches
-    _check_input(x, "tensor")
-    (px0, px1, py0, py1), out_h, out_w, taps, n_fu, n_fd = _geometry(x, fu, fd, up, down,
+    check_input(x, "tensor")
+    (px0, px1, py0, py1), out_h, out_w, taps, n_fu, n_fd = kernel_geometry(x, fu, fd, up, down,
                                                                       padding)
     n, c, h, w = x.shape
     y = torch.empty((n, c, out_h, out_w), dtype=x.dtype, device=x.device)
@@ -194,7 +192,7 @@ def filtered_lrelu_fwd_cuda(x: torch.Tensor, fu: Filter, fd: Filter, up: int, do
                 px0, px1, py0, py1, taps.data_ptr(), n_fu, n_fd,
                 float(gain), float(slope), math.inf if clamp is None else float(clamp),
                 stream)
-    _raise_on_error(lib, rc, "forward")
+    raise_on_error(lib, rc, "forward")
     launches += 1
     return y
 
@@ -205,12 +203,12 @@ def filtered_lrelu_bwd_cuda(x: torch.Tensor, dy: torch.Tensor, fu: Filter, fd: F
     """Launch K2: the gradient at bias-added NCHW `x` along `dy` (both of one
     dtype, contiguous, on one CUDA device); returns dx of x's dtype."""
     global bwd_launches
-    _check_input(x, "input")
-    _check_input(dy, "gradient")
+    check_input(x, "input")
+    check_input(dy, "gradient")
     if dy.dtype != x.dtype or dy.device != x.device:
         raise TypeError(f"filtered_lrelu backward: dy ({dy.dtype}, {dy.device}) must match "
                         f"x ({x.dtype}, {x.device})")
-    (px0, px1, py0, py1), out_h, out_w, taps, n_fu, n_fd = _geometry(x, fu, fd, up, down,
+    (px0, px1, py0, py1), out_h, out_w, taps, n_fu, n_fd = kernel_geometry(x, fu, fd, up, down,
                                                                       padding)
     n, c, h, w = x.shape
     if tuple(dy.shape) != (n, c, out_h, out_w):
@@ -226,6 +224,6 @@ def filtered_lrelu_bwd_cuda(x: torch.Tensor, dy: torch.Tensor, fu: Filter, fd: F
                 down, px0, px1, py0, py1, taps.data_ptr(), n_fu, n_fd, float(gain),
                 float(slope), math.inf if clamp is None else float(clamp),
                 0 if clamp is None else 1, stream)
-    _raise_on_error(lib, rc, "backward")
+    raise_on_error(lib, rc, "backward")
     bwd_launches += 1
     return dx

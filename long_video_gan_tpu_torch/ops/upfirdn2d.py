@@ -1,10 +1,19 @@
 """upfirdn2d — pad, upsample, FIR-filter, downsample a batch of 2D maps.
 
-Counterpart of `long_video_gan_tpu/ops/upfirdn2d.py`, `conv` backend: zero-stuff,
-pad (negative = crop), one depthwise `conv2d` per separable pass (or one 2-D
-conv), decimate through the conv stride. `impl="matrix"` (the JAX package's
-banded-matrix formulation for the TPU's matrix unit) takes the same path here;
-a matrix backend of its own is listed in ROADMAP.md Queue 1.
+Counterpart of `long_video_gan_tpu/ops/upfirdn2d.py`, with its two backends:
+
+  "conv"    zero-stuff, pad (negative = crop), one depthwise `conv2d` per
+            separable pass (or one 2-D conv), decimate through the conv stride;
+  "matrix"  the same linear operator as two dense banded per-axis operators
+            [out, in] (`axis_matrix`), applied by two `torch.einsum`
+            contractions; a 2-D filter takes the conv path, as in the JAX
+            package. "fused" and "pallas" (selectors of the filtered_lrelu
+            kernels) come here too, as the JAX package routes them.
+
+"auto" and "packed" take the conv path, which is what the main path (the
+kernel policy) measured on the card. The JAX package sends them to "matrix"
+as well; which backend serves them better on the card is for a measurement
+to decide.
 
 The op is an autograd Function whose gradient is upfirdn2d again, with up and
 down swapped and the filter flipped (the reference's hand-derived adjoint),
@@ -19,6 +28,7 @@ buffers, so they live on the module's device) or None (identity).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Union
 
 import numpy as np
@@ -79,9 +89,11 @@ def upfirdn2d(x: torch.Tensor, f: Filter, up=1, down=1, padding=0, flip_filter=F
     Differentiable to any order in `x`.
     """
     assert x.ndim == 4, f"expected NCHW input, got shape {tuple(x.shape)}"
-    if impl in ("fused", "packed", "pallas", "auto", "matrix"):
+    if impl in ("fused", "pallas"):
+        impl = "matrix"
+    elif impl in ("packed", "auto"):
         impl = "conv"
-    assert impl == "conv", impl
+    assert impl in ("conv", "matrix"), impl
     f = as_filter_tensor(f, x.device)
     upx, upy = parse_scaling(up)
     downx, downy = parse_scaling(down)
@@ -90,6 +102,9 @@ def upfirdn2d(x: torch.Tensor, f: Filter, up=1, down=1, padding=0, flip_filter=F
     fw, fh = filter_size(f)
     assert x.shape[3] * upx + px0 + px1 >= fw and x.shape[2] * upy + py0 + py1 >= fh, (
         f"upsampled buffer smaller than filter {fh}x{fw}")
+    if impl == "matrix" and f.ndim == 1:
+        return _upfirdn2d_matrix(x, f, (upx, upy), (downx, downy), padding, bool(flip_filter),
+                                 float(gain))
     return _Upfirdn2d.apply(x, f, (upx, upy), (downx, downy), padding, bool(flip_filter),
                             float(gain))
 
@@ -156,6 +171,53 @@ def _upfirdn2d_conv(x: torch.Tensor, f: torch.Tensor, up: tuple[int, int],
         x = F.conv2d(x, f.reshape(1, 1, fh, fw).expand(c, 1, fh, fw), groups=c,
                      stride=(downy, downx))
     return x
+
+
+# ---------------------------------------------------------------------------
+# Matrix backend: each axis's resampling as a dense banded operator R[out, in].
+
+
+@functools.lru_cache(maxsize=256)
+def axis_nonzeros(in_size: int, up: int, down: int, pad0: int, pad1: int, taps: int):
+    """Output size, and the (row, column, tap) of every nonzero of one axis's
+    [out, in] operator: output `row` reads input `column` through `tap` of
+    the flipped filter. Each (row, column) pair meets one tap at most."""
+    up_size = in_size * up + pad0 + pad1
+    out_size = (up_size - taps) // down + 1
+    rows = np.arange(out_size)[:, None]            # output index
+    ktap = np.arange(taps)[None, :]                # filter tap index
+    src = rows * down + ktap - pad0                # index into the zero-stuffed signal
+    in_idx, rem = np.divmod(src, up)
+    valid = (rem == 0) & (in_idx >= 0) & (in_idx < in_size)
+    nonzeros = [torch.from_numpy(np.ascontiguousarray(np.broadcast_to(a, src.shape)[valid]))
+                for a in (rows, in_idx, ktap)]
+    return (out_size, *nonzeros)
+
+
+def axis_matrix(f: torch.Tensor, in_size: int, up: int, down: int, pad0: int, pad1: int,
+                flip_filter: bool, gain: float) -> torch.Tensor:
+    """Dense f32 [out, in] operator of one axis on the 1-D filter's device:
+    zero-stuff (up) -> pad -> FIR -> decimate (the JAX package's
+    `_axis_matrix`). Built from cached indices, so a filter on the card is
+    never read back to the host."""
+    out_size, rows, cols, taps = axis_nonzeros(in_size, up, down, pad0, pad1, f.shape[0])
+    f = f.float() if flip_filter else f.float().flip(0)   # convolution flips the taps
+    r = torch.zeros((out_size, in_size), dtype=torch.float32, device=f.device)
+    r[rows.to(f.device), cols.to(f.device)] = f[taps.to(f.device)] * gain
+    return r
+
+
+def _upfirdn2d_matrix(x: torch.Tensor, f: torch.Tensor, up: tuple[int, int],
+                      down: tuple[int, int], padding: tuple[int, int, int, int],
+                      flip_filter: bool, gain: float) -> torch.Tensor:
+    """[N, C, H, W] x [H', H] x [W', W] -> [N, C, H', W']: two contractions,
+    each pass with gain ** 0.5 so that the two compose to `gain`."""
+    (upx, upy), (downx, downy) = up, down
+    px0, px1, py0, py1 = padding
+    rh = axis_matrix(f, x.shape[2], upy, downy, py0, py1, flip_filter, gain ** 0.5)
+    rw = axis_matrix(f, x.shape[3], upx, downx, px0, px1, flip_filter, gain ** 0.5)
+    x = torch.einsum("nchw,yh->ncyw", x, rh.to(x.dtype))
+    return torch.einsum("ncyw,xw->ncyx", x, rw.to(x.dtype))
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,16 @@
-"""On-card check of the filtered_lrelu kernels (K1 forward, K2 backward)
-against their plain versions at the layer geometries of the 144x256 sres plan.
+"""On-card check of the filtered_lrelu kernels against their plain versions at
+the layer geometries of the 144x256 sres plan: K1 forward and K2 backward
+(`impl="packed"`), K3a forward and K3b backward (`impl="fused"`), K4
+(`impl="pallas"`) and K5 (`filtered_lrelu_pallas_v2`).
 
 Counterpart of `scripts/tpu_selftest.py`: filters, paddings and factors come
 from the port's own `SynthesisLayer`s, with `frames` x `out_channels` planes.
-The reference is the plain composed path computed in f32 (TF32 off) from the
-same input. Used by `chip_smoke.py` and `tests/test_torch_filtered_lrelu_cuda.py`,
-so the two hold the kernel to the same cases and bars.
+Each kernel's reference is its plain version on the same input, computed
+with TF32 off: in f32 for K1, K2, K4 and K5, and for K3a/K3b in the input's
+type, whose bf16 stage rounding is part of K3's function. Timings are in the
+input's type. Used by `chip_smoke.py`
+and `tests/test_torch_filtered_lrelu_cuda.py`, so the two hold the kernels to
+the same cases and bars.
 """
 
 from __future__ import annotations
@@ -13,26 +18,88 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 from .models.generator_sres import SynthesisLayer, SynthesisNetwork
-from .ops import filtered_lrelu_cuda
+from .ops import (filtered_lrelu_cuda, filtered_lrelu_exact, filtered_lrelu_fused,
+                  filtered_lrelu_polyphase)
 from .ops.filtered_lrelu import filtered_lrelu_composed, output_size
+from .ops.upfirdn2d import axis_nonzeros, parse_padding
 
 # Max-abs error relative to max|reference|. bf16: a few bf16 ulps, since the
 # input and output round to bf16 and the kernel sums in f32 (the bar of
-# scripts/tpu_selftest.py); f32: summation order only.
+# scripts/tpu_selftest.py); f32: summation order only. K4's f32 bar is the
+# JAX kernel's own claim of f32 exactness (2e-7 against the f32 oracle).
 TOLS = {torch.bfloat16: 0.03, torch.float32: 1e-4}
+EXACT_F32_TOL = 1e-6
+# K3a in bf16: half a bf16 ulp of the output's scale. Kernel and plain version
+# round the same stages to bf16 and differ only where f32 summation order
+# flips a rounding (the H100 showed no difference at any plan layer). A K3a
+# that kept its stages in f32 lands 3.9e-3 to 1.0e-2 away at the bf16 plan
+# layers and fails it (tests/test_torch_filtered_lrelu_cuda.py). K3b keeps
+# the generic bar: it reads 2.7e-3 to 5.1e-3 there on the H100.
+STAGE_ROUNDED_TOL = 2.0 ** -9
 
-# The bf16 layers of the 144x256 plan that launch the kernel (L14, ToRGB, is
-# an identity resample and takes the composed path).
+# The bf16 layers of the 144x256 plan that launch K1/K2 (L14, ToRGB, is an
+# identity resample and takes the composed path).
 KERNEL_LAYERS = tuple(range(3, 14))
 
-# Frames per slice of the f32 reference: at a training micro-batch (64
+# Frames per slice of the plain reference: at a training micro-batch (64
 # frames) the reference of an up-4 layer would not fit the card at once.
 REF_FRAMES = 16
+
+# The card's published dense peaks (NVIDIA H100 SXM data sheet, 700 W, no
+# sparsity): bf16 products on the tensor cores, f32 outside them, and HBM.
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_BYTES_PER_S = 3.35e12
+
+
+@dataclasses.dataclass(frozen=True)
+class Kernel:
+    """One kernel: its launch on the card and its plain version, both
+    `(x, fu, fd, **kw)` on bias-added x (`(x, dy, fu, fd, **kw)` for a
+    backward). The reference of a check is the plain version on the inputs
+    cast to f32 where `f32_reference`, else on the inputs as they are.
+    `f32_arithmetic`: the function computes in f32 whatever the maps' type."""
+
+    name: str
+    backward: bool
+    launch: Callable
+    plain: Callable
+    f32_reference: bool = True
+    f32_tol: float = TOLS[torch.float32]
+    bf16_tol: float = TOLS[torch.bfloat16]
+    f32_arithmetic: bool = False
+
+    def tol(self, dtype: torch.dtype) -> float:
+        return self.f32_tol if dtype == torch.float32 else self.bf16_tol
+
+    def run(self, *args, **kw) -> torch.Tensor:
+        """The kernel on a CUDA tensor, its plain version on a CPU tensor, as
+        the wrappers dispatch."""
+        return (self.plain if args[0].device.type == "cpu" else self.launch)(*args, **kw)
+
+
+def _composed(x, fu, fd, **kw):
+    return filtered_lrelu_composed(x, fu, fd, None, **kw)
+
+
+KERNELS = {k.name: k for k in (
+    Kernel("K1", False, filtered_lrelu_cuda.filtered_lrelu_fwd_cuda, _composed),
+    Kernel("K2", True, filtered_lrelu_cuda.filtered_lrelu_bwd_cuda,
+           filtered_lrelu_cuda.filtered_lrelu_bwd_plain),
+    Kernel("K3a", False, filtered_lrelu_fused.fused_fwd_cuda,
+           filtered_lrelu_fused.fused_fwd_plain, f32_reference=False,
+           bf16_tol=STAGE_ROUNDED_TOL),
+    Kernel("K3b", True, filtered_lrelu_fused.fused_bwd_cuda,
+           filtered_lrelu_fused.fused_bwd_plain, f32_reference=False),
+    Kernel("K4", False, filtered_lrelu_exact.exact_fwd_cuda, filtered_lrelu_exact.exact_plain,
+           f32_tol=EXACT_F32_TOL, f32_arithmetic=True),
+    Kernel("K5", False, filtered_lrelu_polyphase.polyphase_fwd_cuda,
+           filtered_lrelu_polyphase.polyphase_plain, f32_arithmetic=True),
+)}
 
 
 def plan_layers(img_width: int = 256, img_height: int = 144, channel_max: int = 512,
@@ -45,6 +112,30 @@ def plan_layers(img_width: int = 256, img_height: int = 144, channel_max: int = 
     return list(zip(net.layer_names, net.layers))
 
 
+def served_layers(kernel: str, layers: list[tuple[str, SynthesisLayer]]) -> list[int]:
+    """The plan layers whose filtered_lrelu runs `kernel` on its path: K1/K2
+    the bf16 layers that resample (impl "auto"); K3a/K3b every layer that
+    resamples (impl "fused"); K4 every layer whose top padding the JAX kernel
+    takes (py0 > -up); K5 those of K4 with up and down in {1, 2}."""
+    out = []
+    for i, (_, layer) in enumerate(layers):
+        up, down = layer.up_factor, layer.down_factor
+        resamples = not (up == down == 1 and layer.up_filter is None
+                         and layer.down_filter is None)
+        takes_padding = layer.padding[2] > -up
+        if ((kernel in ("K1", "K2") and resamples and layer.use_fp16)
+                or (kernel in ("K3a", "K3b") and resamples)
+                or (kernel == "K4" and takes_padding)
+                or (kernel == "K5" and takes_padding and up <= 2 and down <= 2)):
+            out.append(i)
+    return out
+
+
+def layer_dtype(layer: SynthesisLayer) -> torch.dtype:
+    """The type the layer's filtered_lrelu runs in on the sres path."""
+    return torch.bfloat16 if layer.use_fp16 else torch.float32
+
+
 @dataclasses.dataclass
 class LayerCheck:
     name: str
@@ -53,8 +144,11 @@ class LayerCheck:
     max_abs_err: float
     rel_err: float
     ok: bool
+    tol: float = 0.0
     ms: Optional[float] = None
     plain_ms: Optional[float] = None
+    bound_ms: Optional[float] = None
+    bound_by: Optional[str] = None
 
 
 @contextlib.contextmanager
@@ -85,17 +179,21 @@ def _time_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _against_plain(name: str, out: torch.Tensor, dtype: torch.dtype, plain) -> LayerCheck:
+def _slices(frames: int) -> list[slice]:
+    return [slice(s, s + REF_FRAMES) for s in range(0, frames, REF_FRAMES)]
+
+
+def _against_plain(name: str, out: torch.Tensor, dtype: torch.dtype, plain,
+                   tol: float) -> LayerCheck:
     """`out` (the kernel's, launched once at full size) against `plain(s)`,
-    the f32 plain version (TF32 off) of the frames in slice `s`, computed
+    the plain version (TF32 off) of the frames in slice `s`, computed
     REF_FRAMES frames at a time so that its memory stays bounded at training
     size; error and scale are the maxima over the slices."""
     err = scale = 0.0
     ref_frames, ref_rest = 0, None
     with tf32_off():
-        for start in range(0, out.shape[0], REF_FRAMES):
-            s = slice(start, start + REF_FRAMES)
-            ref = plain(s)
+        for s in _slices(out.shape[0]):
+            ref = plain(s).float()
             ref_frames += ref.shape[0]
             ref_rest = tuple(ref.shape[1:])
             if tuple(out[s].shape) == tuple(ref.shape):
@@ -106,14 +204,14 @@ def _against_plain(name: str, out: torch.Tensor, dtype: torch.dtype, plain) -> L
             del ref
     scale = scale or 1.0
     return LayerCheck(name=name, shape=tuple(out.shape), dtype=str(dtype).split(".")[-1],
-                      max_abs_err=err, rel_err=err / scale,
+                      max_abs_err=err, rel_err=err / scale, tol=tol,
                       ok=tuple(out.shape) == (ref_frames,) + ref_rest and out.dtype == dtype
-                      and err <= TOLS[dtype] * scale)
+                      and err <= tol * scale)
 
 
 def _layer_inputs(layer: SynthesisLayer, frames: int, dtype: torch.dtype,
                   device: torch.device, generator: torch.Generator):
-    """Seeded input x and bias b of one layer's filtered_lrelu, its filters on
+    """Seeded bias-added input of one layer's filtered_lrelu, its filters on
     `device`, and its keyword arguments."""
     h = layer.in_size[1] + layer.kernel - 1
     w = layer.in_size[0] + layer.kernel - 1
@@ -122,53 +220,76 @@ def _layer_inputs(layer: SynthesisLayer, frames: int, dtype: torch.dtype,
     x = x.to(device=device, dtype=dtype)
     b = torch.randn((c,), generator=generator, device=generator.device).to(device=device,
                                                                             dtype=dtype)
-    fu = layer.up_filter.to(device)
-    fd = layer.down_filter.to(device)
+    fu = None if layer.up_filter is None else layer.up_filter.to(device)
+    fd = None if layer.down_filter is None else layer.down_filter.to(device)
+    gain, slope = (1.0, 1.0) if layer.is_torgb else (math.sqrt(2.0), 0.2)
     kw = dict(up=layer.up_factor, down=layer.down_factor, padding=layer.padding,
-              gain=math.sqrt(2.0), slope=0.2, clamp=layer.conv_clamp)
-    return x, b, fu, fd, kw
+              gain=gain, slope=slope, clamp=layer.conv_clamp)
+    return x + b.reshape(1, -1, 1, 1), fu, fd, kw
+
+
+def bound(layer: SynthesisLayer, frames: int, dtype: torch.dtype, backward: bool,
+          op_dtype: Optional[torch.dtype] = None) -> tuple[float, str]:
+    """(ms, "operations" or "bytes"): the least time the card could take for
+    one layer's filtered_lrelu (backward: its input gradient) on `frames` x
+    out_channels planes of type `dtype`. Operations: the tap-exact
+    multiply-adds of the four separable passes in the H-first order (the
+    nonzeros of each banded operator times the length of the other axis; six
+    passes and U recomputed for the backward), two each, at the peak for
+    `op_dtype`, the type of the products' operands (default `dtype`: bf16
+    maps and taps make bf16 products summed in f32, the tensor cores' work);
+    the activation's few operations per supersampled value are left out.
+    Bytes: each input read once, the output written once, at the HBM peak."""
+    h = layer.in_size[1] + layer.kernel - 1
+    w = layer.in_size[0] + layer.kernel - 1
+    px0, px1, py0, py1 = parse_padding(layer.padding)
+    up, down = layer.up_factor, layer.down_factor
+    fu_taps = 1 if layer.up_filter is None else layer.up_filter.shape[0]
+    fd_taps = 1 if layer.down_filter is None else layer.down_filter.shape[0]
+    hu, au, *_ = axis_nonzeros(h, up, 1, py0, py1, fu_taps)
+    wu, bu, *_ = axis_nonzeros(w, up, 1, px0, px1, fu_taps)
+    ho, ad, *_ = axis_nonzeros(hu, 1, down, 0, 0, fd_taps)
+    wo, bd, *_ = axis_nonzeros(wu, 1, down, 0, 0, fd_taps)
+    au, bu, ad, bd = (t.numel() for t in (au, bu, ad, bd))
+    macs = au * w + bu * hu + bd * hu + ad * wo          # t1, U, t3, out
+    if backward:
+        macs += ad * wo + bd * hu + bu * hu + au * w     # s1, dZ, dt1, dX
+    planes = frames * layer.out_channels
+    item = torch.finfo(dtype).bits // 8
+    maps = h * w + ho * wo + (h * w if backward else 0)
+    ops_ms = 2 * macs * planes / PEAK_FLOPS[op_dtype or dtype] * 1e3
+    bytes_ms = maps * item * planes / PEAK_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
 def check_layer(layer: SynthesisLayer, name: str, frames: int, dtype: torch.dtype,
-                device: torch.device, generator: torch.Generator,
-                time_it: bool = False) -> LayerCheck:
-    """Kernel (through its wrapper) against the plain f32 version on one
-    layer's geometry, `frames` x out_channels planes; optionally times both in
-    `dtype` with CUDA events, each at full size."""
-    x, b, fu, fd, kw = _layer_inputs(layer, frames, dtype, device, generator)
+                device: torch.device, generator: torch.Generator, time_it: bool = False,
+                kernel: str = "K1") -> LayerCheck:
+    """`kernel` against its plain version (TF32 off) on one layer's geometry,
+    `frames` x out_channels planes and, for a backward, a seeded output
+    gradient; optionally times the kernel (mean of 10 launches) and the plain
+    version (mean of 3, REF_FRAMES frames at a time) in `dtype` with CUDA
+    events, and gives the layer's bound. A CPU tensor runs the plain version
+    against itself."""
+    k = KERNELS[kernel]
+    x, fu, fd, kw = _layer_inputs(layer, frames, dtype, device, generator)
+    args = (x,)
+    if k.backward:
+        out_shape = (x.shape[0], x.shape[1]) + output_size(
+            x.shape[2], x.shape[3], fu, fd, kw["up"], kw["down"], kw["padding"])
+        dy = torch.randn(out_shape, generator=generator, device=generator.device)
+        args = (x, dy.to(device=device, dtype=dtype))
 
+    ref = (lambda a: a.float()) if k.f32_reference else (lambda a: a)
     with torch.no_grad():
-        out = filtered_lrelu_cuda.filtered_lrelu_packed(x, fu, fd, b, **kw)
-        xb = x + b.reshape(1, -1, 1, 1)
-        check = _against_plain(name, out, dtype, lambda s: filtered_lrelu_composed(
-            xb[s].float(), fu, fd, None, **kw))
+        out = k.run(*args, fu, fd, **kw)
+        check = _against_plain(name, out, dtype, lambda s: k.plain(
+            *(ref(a[s]) for a in args), fu, fd, **kw), k.tol(dtype))
         if time_it:
-            check.ms = _time_ms(lambda: filtered_lrelu_cuda.filtered_lrelu_fwd_cuda(
-                xb, fu, fd, **kw))
-            check.plain_ms = _time_ms(lambda: filtered_lrelu_composed(xb, fu, fd, None, **kw))
+            check.ms = _time_ms(lambda: k.run(*args, fu, fd, **kw))
+            check.plain_ms = _time_ms(lambda: [k.plain(*(a[s] for a in args), fu, fd, **kw)
+                                               for s in _slices(frames)], iters=3)
+            check.bound_ms, check.bound_by = bound(
+                layer, frames, dtype, k.backward, torch.float32 if k.f32_arithmetic else dtype)
     return check
 
-
-def check_layer_bwd(layer: SynthesisLayer, name: str, frames: int, dtype: torch.dtype,
-                    device: torch.device, generator: torch.Generator,
-                    time_it: bool = False) -> LayerCheck:
-    """K2 (through its wrapper) against its plain version, the autograd
-    gradient of the composed op in f32 (TF32 off), on one layer's geometry
-    and a seeded output gradient; optionally times both in `dtype`."""
-    x, b, fu, fd, kw = _layer_inputs(layer, frames, dtype, device, generator)
-    xb = x + b.reshape(1, -1, 1, 1)
-    out_shape = (xb.shape[0], xb.shape[1]) + output_size(
-        xb.shape[2], xb.shape[3], fu, fd, kw["up"], kw["down"], kw["padding"])
-    dy = torch.randn(out_shape, generator=generator, device=generator.device)
-    dy = dy.to(device=device, dtype=dtype)
-
-    dx = filtered_lrelu_cuda.filtered_lrelu_bwd_cuda(xb, dy, fu, fd, **kw)
-    check = _against_plain(name, dx, dtype, lambda s: (
-        filtered_lrelu_cuda.filtered_lrelu_bwd_plain(xb[s].float(), dy[s].float(), fu, fd,
-                                                     **kw)))
-    if time_it:
-        check.ms = _time_ms(lambda: filtered_lrelu_cuda.filtered_lrelu_bwd_cuda(
-            xb, dy, fu, fd, **kw))
-        check.plain_ms = _time_ms(lambda: filtered_lrelu_cuda.filtered_lrelu_bwd_plain(
-            xb, dy, fu, fd, **kw))
-    return check

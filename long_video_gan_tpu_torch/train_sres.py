@@ -14,7 +14,7 @@ branch of the D step, as in the reference. Writes `config.json`,
     python -m long_video_gan_tpu_torch.train_sres --dataset data --preset tiny \\
         --batch 4 --device cpu
 
-Data comes through the JAX package's jax-free `long_video_gan_tpu.data`.
+Data comes through the port's `data` package (ZIP shards of JPEG frames).
 Train checkpoints and `--resume`, sample videos, in-training metrics,
 several processes and wandb are not ported yet.
 """
@@ -114,9 +114,8 @@ def train_step(gan: SuperResVideoGAN, generator: torch.Generator, c: dict, step:
 
 
 def train(c: dict, run_dir: str, seed: int, device: torch.device) -> None:
-    from long_video_gan_tpu.data.dataset import VideoDatasetTwoRes
-    from long_video_gan_tpu.data.loader import get_infinite_data_iter
-
+    from .data.dataset import VideoDatasetTwoRes
+    from .data.loader import get_infinite_data_iter
     from .io.checkpoint import save_generator
 
     start_time = time.time()
@@ -197,7 +196,7 @@ def main(argv: Optional[list[str]] = None) -> str:
     parser.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu")
     args = parser.parse_args(argv)
 
-    from long_video_gan_tpu.utils.video import get_next_run_dir
+    from .utils.video import get_next_run_dir
 
     c = build_config(args.dataset_dir, args.total_batch, args.grad_accum, args.r1_gamma,
                      args.preset)

@@ -2,8 +2,9 @@
 
 The library gets a plain C interface (no PyTorch headers), which keeps a build
 to seconds. It is built at first use into `long_video_gan_tpu_torch/_build/`,
-named by a hash of the source and the flags, so an edited source rebuilds and
-an unchanged one loads the library already there.
+named by a hash of the source, the shared `csrc/*.cuh` headers and the flags,
+so an edited source rebuilds and an unchanged one loads the library already
+there.
 """
 
 from __future__ import annotations
@@ -38,7 +39,11 @@ def find_nvcc() -> str:
 def build_library(source_name: str) -> Path:
     """Compile `csrc/<source_name>` unless a library of the same hash exists."""
     src = CSRC_DIR / source_name
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    # The shared headers count too: a source that includes an edited header
+    # rebuilds.
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"{src.stem}-{digest}.so"
     if out.is_file():
         return out
@@ -57,5 +62,15 @@ def build_library(source_name: str) -> Path:
     return out
 
 
-def load_library(source_name: str) -> ctypes.CDLL:
-    return ctypes.CDLL(str(build_library(source_name)))
+def load_library(source_name: str, signatures: dict[str, list]) -> ctypes.CDLL:
+    """Build and load `csrc/<source_name>`; each named C function of
+    `signatures` takes those ctypes argument types and returns a cudaError_t
+    (an int), which `lvg_cuda_error_string` turns into its message."""
+    lib = ctypes.CDLL(str(build_library(source_name)))
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.lvg_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.lvg_cuda_error_string.restype = ctypes.c_char_p
+    return lib

@@ -1,12 +1,16 @@
-"""The Hopper filtered_lrelu kernels' wrapper (K1 forward, K2 backward).
+"""The Hopper filtered_lrelu kernels' wrappers: K1 forward and K2 backward
+("packed"), K3a forward and K3b backward ("fused"), K4 ("pallas") and K5
+(`filtered_lrelu_pallas_v2`).
 
-CPU part: a CPU tensor never launches a kernel, whatever the impl; the
-kernels not ported yet raise; importing the wrapper needs no nvcc.
+CPU part: a CPU tensor never launches a kernel, whatever the impl or entry
+point; the selftest's checks run plain against plain there; importing the
+wrappers needs no nvcc.
 
 CUDA part (marker `cuda`, skipped without a card): each kernel against its
-plain version at every layer geometry of the 144x256 sres plan that
-launches it, through `long_video_gan_tpu_torch.selftest`, the cases and bars
-`chip_smoke.py` uses. Runs on the card without jax installed:
+plain version at the layer geometries of the 144x256 sres plan that launch
+it, through `long_video_gan_tpu_torch.selftest`, the cases and bars
+`chip_smoke.py` uses, and each entry point's launch counts. Runs on the card
+without jax installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_filtered_lrelu_cuda.py
 """
 
@@ -20,7 +24,8 @@ import torch
 
 from long_video_gan_tpu_torch import selftest
 from long_video_gan_tpu_torch.models.generator_sres import SynthesisLayer
-from long_video_gan_tpu_torch.ops import filtered_lrelu_cuda
+from long_video_gan_tpu_torch.ops import (filtered_lrelu_cuda, filtered_lrelu_exact,
+                                          filtered_lrelu_fused, filtered_lrelu_polyphase)
 from long_video_gan_tpu_torch.ops.filtered_lrelu import filtered_lrelu, filtered_lrelu_composed
 from long_video_gan_tpu_torch.ops.filters import design_kaiser_lowpass
 
@@ -88,11 +93,89 @@ def test_selftest_compares_in_reference_slices():
     assert check.shape[0] == frames
 
 
-@pytest.mark.parametrize("impl,entry", [("fused", "K3"), ("pallas", "K4")])
-def test_unported_kernels_raise(impl, entry):
-    x, b = _inputs()
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 2, {entry}"):
-        filtered_lrelu(x, FU, FU, b, up=2, down=2, padding=9, impl=impl)
+def _reset_counts():
+    filtered_lrelu_cuda.launches = filtered_lrelu_cuda.bwd_launches = 0
+    filtered_lrelu_fused.fwd_launches = filtered_lrelu_fused.bwd_launches = 0
+    filtered_lrelu_exact.launches = filtered_lrelu_polyphase.launches = 0
+
+
+def _counts():
+    return (filtered_lrelu_cuda.launches, filtered_lrelu_cuda.bwd_launches,
+            filtered_lrelu_fused.fwd_launches, filtered_lrelu_fused.bwd_launches,
+            filtered_lrelu_exact.launches, filtered_lrelu_polyphase.launches)
+
+
+ENTRIES = {
+    "fused": lambda *a, **k: filtered_lrelu(*a, impl="fused", **k),
+    "pallas": lambda *a, **k: filtered_lrelu(*a, impl="pallas", **k),
+    "pallas_v2": filtered_lrelu_polyphase.filtered_lrelu_pallas_v2,
+}
+
+
+@pytest.mark.parametrize("entry", list(ENTRIES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_new_entries_on_cpu_take_plain(entry, dtype):
+    """The K3-K5 entry points on a CPU tensor compute their plain versions
+    (for bf16 within selftest's bar of the f32 composed op: K3 rounds four
+    stages to bf16) and launch nothing."""
+    x, b = _inputs(dtype)
+    _reset_counts()
+    got = ENTRIES[entry](x, FU, FU, b, up=2, down=2, padding=(9, 8, 9, 8), clamp=256.0)
+    want = filtered_lrelu_composed(x.float(), FU, FU, b.float(), up=2, down=2,
+                                   padding=(9, 8, 9, 8), clamp=256.0)
+    assert _counts() == (0,) * 6
+    assert got.dtype == dtype
+    tol = 1e-5 if dtype == torch.float32 else selftest.TOLS[dtype] * want.abs().max().item()
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("kernel", list(selftest.KERNELS))
+def test_selftest_checks_every_kernel_on_cpu(kernel):
+    """selftest's check of each kernel runs its plain version against itself
+    on a CPU tensor: an exact agreement, at the kernel's own bar."""
+    layer = SynthesisLayer(**LAYER_KW, resample_impl="auto")
+    check = selftest.check_layer(layer, "small", 3, torch.float32, torch.device("cpu"),
+                                 torch.Generator().manual_seed(4), kernel=kernel)
+    assert check.ok and check.max_abs_err == 0.0, check
+    assert check.tol == (1e-6 if kernel == "K4" else 1e-4)
+    assert selftest.KERNELS[kernel].tol(torch.bfloat16) == (2 ** -9 if kernel == "K3a" else 0.03)
+
+
+def test_served_layers_of_the_plan(plan_layers):
+    served = {k: selftest.served_layers(k, plan_layers) for k in selftest.KERNELS}
+    assert served["K1"] == served["K2"] == list(selftest.KERNEL_LAYERS)
+    assert served["K3a"] == served["K3b"] == list(range(14))
+    assert served["K4"] == served["K5"] == [0, 1, 2, 4, 6, 8, 9, 11, 12, 14]
+    # L10 at 16 frames: ~25 GFLOP, ~0.49 GB of bf16 maps. bf16 products at
+    # 989 TFLOP/s take ~0.026 ms, so the bytes at 3.35 TB/s bound it; the same
+    # operations in f32 (K4, K5) at 67 TFLOP/s take ~0.38 ms and bound it.
+    layer = plan_layers[10][1]
+    ms, by = selftest.bound(layer, 16, torch.bfloat16, backward=False)
+    assert by == "bytes" and 0.13 < ms < 0.16
+    ms, by = selftest.bound(layer, 16, torch.bfloat16, backward=False,
+                            op_dtype=torch.float32)
+    assert by == "operations" and 0.3 < ms < 0.45
+
+
+@pytest.mark.parametrize("idx", selftest.KERNEL_LAYERS)
+def test_k3a_bar_refuses_unrounded_stages(idx, plan_layers):
+    """K3a's bf16 bar tells it from the function it must differ from: the same
+    products with every stage kept in f32 (K1's function) fail it at each bf16
+    plan layer, L3's and L10's crops included, on 8 planes; the plain version,
+    stages rounded, passes."""
+    name, layer = plan_layers[idx]
+    x, fu, fd, kw = selftest._layer_inputs(layer, 1, torch.bfloat16, torch.device("cpu"),
+                                           torch.Generator().manual_seed(idx))
+    x = x[:, :8].contiguous()
+    tol = selftest.KERNELS["K3a"].tol(torch.bfloat16)
+
+    def plain(s):
+        return filtered_lrelu_fused.fused_fwd_plain(x[s], fu, fd, **kw)
+
+    unrounded = filtered_lrelu_fused.fused_fwd_plain(x.float(), fu, fd, **kw).bfloat16()
+    check = selftest._against_plain(name, unrounded, torch.bfloat16, plain, tol)
+    assert not check.ok, check
+    assert selftest._against_plain(name, plain(slice(None)), torch.bfloat16, plain, tol).ok
 
 
 def test_kernel_entry_rejects_cpu_tensor():
@@ -211,8 +294,8 @@ def test_kernel_refuses_gradient(cuda_device):
 def test_bwd_kernel_matches_plain_bf16(idx, cuda_device, plan_layers):
     name, layer = plan_layers[idx]
     gen = torch.Generator().manual_seed(200 + idx)
-    check = selftest.check_layer_bwd(layer, name, TRAIN_FRAMES, torch.bfloat16, cuda_device,
-                                     gen)
+    check = selftest.check_layer(layer, name, TRAIN_FRAMES, torch.bfloat16, cuda_device, gen,
+                                 kernel="K2")
     assert check.ok, check
 
 
@@ -221,8 +304,8 @@ def test_bwd_kernel_matches_plain_bf16(idx, cuda_device, plan_layers):
 def test_bwd_kernel_matches_plain_f32(idx, cuda_device, plan_layers):
     name, layer = plan_layers[idx]
     gen = torch.Generator().manual_seed(300 + idx)
-    check = selftest.check_layer_bwd(layer, name, TRAIN_FRAMES, torch.float32, cuda_device,
-                                     gen)
+    check = selftest.check_layer(layer, name, TRAIN_FRAMES, torch.float32, cuda_device, gen,
+                                 kernel="K2")
     assert check.ok, check
 
 
@@ -249,3 +332,62 @@ def test_kernel_rejects_bad_input(cuda_device):
     with pytest.raises(ValueError, match="separable"):
         filtered_lrelu_cuda.filtered_lrelu_fwd_cuda(x, np.outer(FU, FU), FU, 2, 2, 9,
                                                     1.4, 0.2, None)
+
+
+def _small_layer():
+    return "small", SynthesisLayer(**LAYER_KW, resample_impl="auto")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,frames", [("K3a", 16), ("K3b", TRAIN_FRAMES)])
+@pytest.mark.parametrize("where", ["small", "L3"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_kernels_match_plain(kernel, frames, where, dtype, cuda_device, plan_layers):
+    """K3a and K3b at a small up-2 geometry and at L3 (31x38, up 4, a crop:
+    the geometry that once miscompiled on the TPU)."""
+    name, layer = _small_layer() if where == "small" else plan_layers[3]
+    gen = torch.Generator().manual_seed(400)
+    check = selftest.check_layer(layer, name, frames, dtype, cuda_device, gen, kernel=kernel)
+    assert check.ok, check
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K4", "K5"])
+@pytest.mark.parametrize("where", ["small", "L4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_only_kernels_match_plain(kernel, where, dtype, cuda_device, plan_layers):
+    """K4 (f32 bar 1e-6) and K5 at a small up-2 geometry and at L4."""
+    name, layer = _small_layer() if where == "small" else plan_layers[4]
+    gen = torch.Generator().manual_seed(500)
+    check = selftest.check_layer(layer, name, 16, dtype, cuda_device, gen, kernel=kernel)
+    assert check.ok, check
+
+
+@pytest.mark.cuda
+def test_fused_entry_launches_k3_and_refuses_second_order(cuda_device):
+    x = torch.randn((1, 2, 12, 16), device=cuda_device, requires_grad=True)
+    _reset_counts()
+    y = filtered_lrelu(x, FU, FU, None, up=2, down=2, padding=9, impl="fused")
+    (g,) = torch.autograd.grad(y.square().sum(), x, create_graph=True)
+    assert _counts() == (0, 0, 1, 1, 0, 0)
+    with pytest.raises(NotImplementedError, match="first-order"):
+        torch.autograd.grad(g.square().sum(), x)
+    filtered_lrelu(x, None, None, None, impl="fused")            # identity resample
+    assert _counts() == (0, 0, 1, 1, 0, 0)
+
+
+@pytest.mark.cuda
+def test_forward_only_entries_launch_and_refuse_gradients(cuda_device):
+    x = torch.randn((1, 2, 12, 16), device=cuda_device, requires_grad=True)
+    _reset_counts()
+    y4 = filtered_lrelu(x, FU, FU, None, up=2, down=2, padding=9, impl="pallas")
+    y5 = filtered_lrelu_polyphase.filtered_lrelu_pallas_v2(x, FU, FU, None, up=2, down=2,
+                                                            padding=9)
+    assert _counts() == (0, 0, 0, 0, 1, 1)
+    for y in (y4, y5):
+        with pytest.raises(NotImplementedError, match="forward-only"):
+            torch.autograd.grad(y.sum(), x)
+    for entry in ("pallas", "pallas_v2"):
+        with pytest.raises(ValueError, match="py0"):
+            ENTRIES[entry](x, FU, FU, None, up=2, down=2, padding=(9, 8, -2, 8))
+    assert _counts() == (0, 0, 0, 0, 1, 1)

@@ -115,26 +115,45 @@ def test_cli_writes_videos_and_frames(checkpoints, tmp_path):
     assert (lres_only.parent / "v-frame0001.png").is_file()
 
 
-def test_port_runs_without_jax_flax_msgpack(checkpoints):
-    """The port imports none of jax, flax or msgpack: with them unimportable
-    it loads both checkpoints and generates."""
+def test_port_runs_without_jax_flax_msgpack(checkpoints, tmp_path):
+    """The port imports none of jax, flax, msgpack or the JAX package: with
+    them unimportable it loads both checkpoints and generates, runs the
+    generate CLI with video writing and `--save-lres`, and trains a tiny sres
+    run through its CLI on a synthetic dataset made here."""
+    from long_video_gan_tpu.data.tools.synthetic import make_synthetic_dataset
+
     root = checkpoints[0]
+    data = tmp_path / "data"
+    make_synthetic_dataset(str(data), [(8, 16), (32, 64)], num_videos=3, frames_per_video=20,
+                           num_partitions=1)
     code = (
         "import sys\n"
-        "for name in ('jax', 'flax', 'msgpack'):\n"
+        "for name in ('jax', 'flax', 'msgpack', 'long_video_gan_tpu'):\n"
         "    sys.modules[name] = None\n"
+        "import glob, os\n"
         "import torch\n"
         "import long_video_gan_tpu_torch\n"
         "import long_video_gan_tpu_torch.generate as g\n"
         "import long_video_gan_tpu_torch.selftest\n"
+        "from long_video_gan_tpu_torch import train_sres\n"
         "from long_video_gan_tpu_torch.io.checkpoint import load_generator\n"
+        "from long_video_gan_tpu_torch.ops import (filtered_lrelu_exact, filtered_lrelu_fused,\n"
+        "                                          filtered_lrelu_polyphase)\n"
         f"lres, _ = load_generator({str(root / 'lres.lvg')!r})\n"
         f"sres, _ = load_generator({str(root / 'sres.lvg')!r})\n"
         "segs = list(g.generate_video(lres, sres, 4, segment_length=4,"
         " generator=torch.Generator().manual_seed(0), device=torch.device('cpu')))\n"
         "assert tuple(segs[0].shape) == (1, 3, 4, 32, 64)\n"
-        "assert not [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax')"
-        " and sys.modules[m] is not None]\n"
+        f"out = {str(tmp_path / 'video.mp4')!r}\n"
+        f"g.main(['--lres', {str(root / 'lres.lvg')!r}, '--sres', {str(root / 'sres.lvg')!r},"
+        " '--output', out, '--frames', '4', '--segment-length', '4', '--save-lres',"
+        " '--device', 'cpu'])\n"
+        "assert os.path.exists(out) or os.path.isdir(out + '.frames')\n"
+        f"run = train_sres.main(['--dataset', {str(data)!r}, '--preset', 'tiny', '--batch', '2',"
+        f" '--outdir', {str(tmp_path / 'runs')!r}, '--total-steps', '2', '--device', 'cpu'])\n"
+        "assert glob.glob(os.path.join(run, 'checkpoints', '*.lvg'))\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'msgpack',"
+        " 'long_video_gan_tpu') and sys.modules[m] is not None]\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=300, cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO))
