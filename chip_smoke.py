@@ -1,9 +1,12 @@
-"""Smoke run of the PyTorch port on one NVIDIA GPU: builds the port's four CUDA
-sources from the checkout (six kernels), holds each kernel against its plain
-version at every layer geometry its paths give it (K1 forward at generation
-and training size, K2 backward at training size; K3a forward at generation
-and training size, K3b backward at training size; K4 and K5 at generation
-size), then drives each path through the entry points a user calls:
+"""Smoke run of the PyTorch port on one NVIDIA GPU: builds the port's five CUDA
+sources from the checkout (six kernels; K1 and K2 have a bf16 tensor-core
+source and an f32 one), prints the tensor-core kernels' registers, spills and
+HMMA instruction counts, holds each kernel against its plain version at every
+layer geometry its paths give it (K1 forward at generation and training size,
+also against the f32 composed op; K2 backward at training size; K3a forward
+at generation and training size, K3b backward at training size; K4 and K5 at
+generation size), with K1's and K2's executed tensor-core rate, then drives
+each path through the entry points a user calls:
 
 - full-width two-stage generation through
   `long_video_gan_tpu_torch.generate.generate_video`, with the kernel policy
@@ -27,6 +30,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -123,17 +127,21 @@ def main() -> int:
     # 2. Build every kernel's library from the checkout's sources, one nvcc
     # each, all together.
     phase("build")
-    sources = {"K1": filtered_lrelu_cuda.SOURCE, "K2": filtered_lrelu_cuda.BWD_SOURCE,
+    # K1 and K2 on the main path: the bf16 tensor-core source (their f32
+    # kernels serve the f32 checks only).
+    sources = {"K1": filtered_lrelu_cuda.TC_SOURCE, "K2": filtered_lrelu_cuda.TC_SOURCE,
                "K3a": filtered_lrelu_fused.SOURCE, "K3b": filtered_lrelu_fused.SOURCE,
                "K4": filtered_lrelu_exact.SOURCE, "K5": filtered_lrelu_polyphase.SOURCE}
-    libraries = (filtered_lrelu_cuda.library, filtered_lrelu_cuda.bwd_library,
-                 filtered_lrelu_fused.library, filtered_lrelu_polyphase.library)
+    libraries = (filtered_lrelu_cuda.tc_library, filtered_lrelu_cuda.library,
+                 filtered_lrelu_cuda.bwd_library, filtered_lrelu_fused.library,
+                 filtered_lrelu_polyphase.library)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libraries)) as pool:
         for future in [pool.submit(lib) for lib in libraries]:
             future.result()
-    print(f"built {', '.join(sorted(set(sources.values())))} in "
+    print(f"built {', '.join(sorted(set(sources.values())))} and the f32 K1/K2 sources in "
           f"{time.perf_counter() - t0:.2f} s")
+    tensor_core_report()
 
     # 3-4. Every kernel against its plain version at each layer geometry
     # that launches it, at the frame counts its paths give it: a generation
@@ -354,14 +362,29 @@ def check_kernel(layers, frames: int, device, gen, kernel: str, f32_extra=()):
         raise RuntimeError(f"{kernel} does not serve layers {sorted(set(indices) - set(served))}")
     checks = [selftest.check_layer(layers[i][1], layers[i][0], frames,
                                    selftest.layer_dtype(layers[i][1]), device, gen, time_it=True,
-                                   kernel=kernel) for i in indices]
+                                   kernel=kernel, vs_composed=kernel == "K1") for i in indices]
     checks += [selftest.check_layer(layers[i][1], layers[i][0], frames, torch.float32, device,
                                     gen, kernel=kernel)
                for i in f32_extra
                if i not in indices or selftest.layer_dtype(layers[i][1]) != torch.float32]
+    by_name = dict(layers)
     for c in checks:
         timing = ("" if c.ms is None else f" kernel {c.ms:.3f} ms plain {c.plain_ms:.3f} ms "
-                  f"bound {c.bound_ms:.3f} ms ({c.bound_by})")
+                  f"bound {c.bound_ms:.3f} ms ({c.bound_by}, {c.bound_ms / c.ms:.2%})")
+        if c.composed_rel_err is not None:
+            timing += f" vs f32 composed {c.composed_rel_err:.2e}"
+        if c.ulp_share is not None:
+            timing += (f" off by > 1 ulp {c.ulp_share:.2e} of the elements "
+                       f"(tol {selftest.K1_ULP_SHARE:g})")
+        if c.over is not None:
+            timing += (f" beyond act' flips {c.beyond_flips_rel_err:.2e} "
+                       f"(tol {selftest.K2_RESIDUAL_TOL:g}), off by > {selftest.K2_RESIDUAL_TOL:g}"
+                       f" {c.over} of {c.elements} ({c.over_share:.2e}, tol "
+                       f"{selftest.K2_OVER_SHARE:g}), {c.over_in_reach} of them within reach "
+                       f"of a U near 0 (all elements: {c.reach_share:.1%})")
+        if c.ms is not None and kernel in ("K1", "K2"):
+            flops = selftest.executed_flops(by_name[c.name], frames, kernel)
+            timing += f" executed {flops / c.ms / 1e9:.1f} TFLOP/s"
         print(f"{kernel} {c.name:<16} {c.dtype:<8} out {c.shape} rel_err {c.rel_err:.2e} "
               f"(tol {c.tol:g}){timing} {'ok' if c.ok else 'FAIL'}")
     failed = [c.name + "/" + c.dtype for c in checks if not c.ok]
@@ -373,8 +396,37 @@ def check_kernel(layers, frames: int, device, gen, kernel: str, f32_extra=()):
     by_ops = sum(c.bound_ms for c in timed if c.bound_by == "operations")
     bound_by = "operations" if by_ops >= bound_ms / 2 else "bytes"
     print(f"{kernel} at {frames} frames, {len(timed)} layers: kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})")
+          f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}, {bound_ms / ms:.2%})")
     return checks, ms, plain_ms, bound_ms, bound_by
+
+
+def tensor_core_report() -> None:
+    """The bf16 K1/K2 kernels' registers and spills (ptxas, kept beside the
+    library) and HMMA instruction counts (cuobjdump -sass of the library);
+    raises unless both use the tensor cores and spill nothing."""
+    from pathlib import Path
+
+    from long_video_gan_tpu_torch.utils.nvcc import build_library, find_nvcc
+
+    lib = build_library("filtered_lrelu_tc.cu")
+    log = lib.with_suffix(".log").read_text()
+    sass = subprocess.run([str(Path(find_nvcc()).parent / "cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    functions = {}
+    for chunk in sass.split("Function : ")[1:]:
+        functions[chunk.split()[0]] = chunk.count("HMMA")
+    for kernel, which in (("filtered_lrelu_fwd_tc_kernel", "K1"),
+                          ("filtered_lrelu_bwd_tc_kernel", "K2")):
+        entry = log.split(kernel)
+        regs = re.search(r"Used (\d+) registers", entry[-1]) if len(entry) > 1 else None
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry[-1]
+                           ) if len(entry) > 1 else None
+        hmma = sum(n for name, n in functions.items() if kernel in name)
+        print(f"{which} tensor-core kernel {kernel}: {regs.group(1) if regs else '?'} registers, "
+              f"spill stores/loads {spills.groups() if spills else '?'} bytes, HMMA "
+              f"instructions {hmma}")
+        if not hmma or not spills or spills.groups() != ("0", "0"):
+            raise RuntimeError(f"{which}'s kernel has no HMMA instruction or spills registers")
 
 
 def generate_phase(lres_G, sres_G, run_gen, device, expected: dict) -> dict:

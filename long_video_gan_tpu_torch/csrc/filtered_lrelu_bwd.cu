@@ -1,7 +1,7 @@
-// filtered_lrelu backward for Hopper (sm_90a): the gradient with respect to
-// the bias-added input x of filtered_lrelu_fwd.cu's function, with the
-// supersampled U recomputed on chip. Plain C interface, loaded with ctypes by
-// ops/filtered_lrelu_cuda.py.
+// filtered_lrelu backward for Hopper (sm_90a) on f32 maps: the gradient with
+// respect to the bias-added input x of filtered_lrelu_fwd.cu's function, with
+// the supersampled U recomputed on chip. Plain C interface, loaded with ctypes
+// by ops/filtered_lrelu_cuda.py. bf16 maps go to filtered_lrelu_tc.cu.
 //
 // Replaces: long_video_gan_tpu/ops/pallas/filtered_lrelu_packed.py
 // `_packed_bwd` (the lane-packed Pallas backward kernel on the TPU, reached
@@ -34,7 +34,6 @@
 // operators were TPU layout devices and have no counterpart here.
 
 #include <climits>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -57,22 +56,13 @@ struct Geometry {
   int has_clamp;
 };
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
 __host__ __device__ __forceinline__ int floor_div(int a, int b) {  // b > 0
   return a >= 0 ? a / b : -((-a + b - 1) / b);
 }
 
 __host__ __device__ __forceinline__ int ceil_div(int a, int b) { return -floor_div(-a, b); }
 
-// Floats of the scratch buffer, used in turn as [I][G] (up pass along x),
+// Floats of the scratch buffer, used in turn as [G][I] (up pass along y),
 // [D][G] (down^T pass along x) and [G][T] (up^T pass along x).
 __host__ __device__ __forceinline__ int t_floats(const Geometry& g) {
   int t = g.i_size * g.g_size;
@@ -87,10 +77,9 @@ __host__ __device__ __forceinline__ int smem_floats(const Geometry& g) {
          g.g_size * g.g_size;
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-filtered_lrelu_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* __restrict__ dx,
-                          const float* __restrict__ taps, Geometry g) {
+filtered_lrelu_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+                          float* __restrict__ dx, const float* __restrict__ taps, Geometry g) {
   extern __shared__ float smem[];
   const int G = g.g_size, I = g.i_size, D = g.d_size, TT = g.tile;
   float* s_fu = smem;
@@ -120,46 +109,48 @@ filtered_lrelu_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* 
   for (int k = threadIdx.x; k < g.fu_taps + g.fd_taps; k += blockDim.x) s_fu[k] = taps[k];
 
   // 1. x and dy patches, zero outside the maps.
-  const T* xp = x + (size_t)plane * g.in_h * g.in_w;
+  const float* xp = x + (size_t)plane * g.in_h * g.in_w;
   for (int idx = threadIdx.x; idx < I * I; idx += blockDim.x) {
     const int r = idx / I, c = idx - r * I;
     const int gy = ys0 + r, gx = xs0 + c;
     float v = 0.f;
-    if (gy >= 0 && gy < g.in_h && gx >= 0 && gx < g.in_w) v = to_f32(xp[(size_t)gy * g.in_w + gx]);
+    if (gy >= 0 && gy < g.in_h && gx >= 0 && gx < g.in_w) v = xp[(size_t)gy * g.in_w + gx];
     s_x[idx] = v;
   }
-  const T* dyp = dy + (size_t)plane * g.out_h * g.out_w;
+  const float* dyp = dy + (size_t)plane * g.out_h * g.out_w;
   for (int idx = threadIdx.x; idx < D * D; idx += blockDim.x) {
     const int r = idx / D, c = idx - r * D;
     const int gy = oy0 + r, gx = ox0 + c;
     float v = 0.f;
     if (gy >= 0 && gy < g.out_h && gx >= 0 && gx < g.out_w)
-      v = to_f32(dyp[(size_t)gy * g.out_w + gx]);
+      v = dyp[(size_t)gy * g.out_w + gx];
     s_dy[idx] = v;
   }
   __syncthreads();
 
-  // 2. Up pass along x into s_t [I][G]; only the taps that meet a nonzero of
-  //    the zero-stuffed row ((j + k) % up == 0).
-  for (int idx = threadIdx.x; idx < I * G; idx += blockDim.x) {
-    const int r = idx / G, c = idx - r * G;
-    const int j = jx0 + c;
-    const float* row = s_x + r * I;
+  // 2. Up pass along y into s_t [G][I], first, as the products Au . X . Bu^T
+  //    of the plain version and the TPU kernel (act' jumps at U = 0, so U
+  //    must round as theirs does); only the taps that meet a nonzero of the
+  //    zero-stuffed column ((j + k) % up == 0).
+  for (int idx = threadIdx.x; idx < G * I; idx += blockDim.x) {
+    const int r = idx / I, c = idx - r * I;
+    const int j = jy0 + r;
+    const float* col = s_x + c;
     float acc = 0.f;
     for (int k = ceil_div(j, g.up) * g.up - j; k < g.fu_taps; k += g.up)
-      acc += s_fu[k] * row[(j + k) / g.up - xs0];
+      acc += s_fu[k] * col[((j + k) / g.up - ys0) * I];
     s_t[idx] = acc;
   }
   __syncthreads();
 
-  // 3. Up pass along y gives U; keep act'(U) in s_g [G][G].
+  // 3. Up pass along x gives U; keep act'(U) in s_g [G][G].
   for (int idx = threadIdx.x; idx < G * G; idx += blockDim.x) {
     const int r = idx / G, c = idx - r * G;
-    const int j = jy0 + r;
-    const float* col = s_t + c;
+    const int j = jx0 + c;
+    const float* row = s_t + r * I;
     float u = 0.f;
     for (int k = ceil_div(j, g.up) * g.up - j; k < g.fu_taps; k += g.up)
-      u += s_fu[k] * col[((j + k) / g.up - ys0) * G];
+      u += s_fu[k] * row[(j + k) / g.up - xs0];
     float d = u >= 0.f ? g.gain : g.gain * g.slope;
     if (g.has_clamp) {
       const float z = (u >= 0.f ? u : u * g.slope) * g.gain;
@@ -206,7 +197,7 @@ filtered_lrelu_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* 
   __syncthreads();
 
   // 7. Transposed up pass along y, store the tile's in-range dx.
-  T* dxp = dx + (size_t)plane * g.in_h * g.in_w;
+  float* dxp = dx + (size_t)plane * g.in_h * g.in_w;
   for (int idx = threadIdx.x; idx < TT * TT; idx += blockDim.x) {
     const int r = idx / TT, c = idx - r * TT;
     const int iy = iy0 + r, ix = ix0 + c;
@@ -214,7 +205,7 @@ filtered_lrelu_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* 
     const float* col = s_t + (r * g.up + g.fu_taps - 1) * TT + c;
     float acc = 0.f;
     for (int k = 0; k < g.fu_taps; ++k) acc += s_fu[k] * col[-k * TT];
-    dxp[(size_t)iy * g.in_w + ix] = from_f32<T>(acc);
+    dxp[(size_t)iy * g.in_w + ix] = acc;
   }
 }
 
@@ -227,7 +218,6 @@ void set_tile(Geometry& g, int tile) {
   g.tiles_per_plane = g.tiles_x * ((g.in_h + tile - 1) / tile);
 }
 
-template <typename T>
 cudaError_t launch(const void* x, const void* dy, void* dx, int planes, int in_h, int in_w,
                    int out_h, int out_w, int up, int down, int px0, int px1, int py0, int py1,
                    const float* taps, int fu_taps, int fd_taps, float gain, float slope,
@@ -258,11 +248,12 @@ cudaError_t launch(const void* x, const void* dy, void* dx, int planes, int in_h
   const size_t smem = (size_t)smem_floats(g) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        filtered_lrelu_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        filtered_lrelu_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  filtered_lrelu_bwd_kernel<T><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<T*>(dx), taps, g);
+  filtered_lrelu_bwd_kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(dy), static_cast<float*>(dx), taps,
+      g);
   return cudaGetLastError();
 }
 
@@ -281,11 +272,7 @@ cudaError_t launch(const void* x, const void* dy, void* dx, int planes, int in_h
       fu_taps, fd_taps, gain, slope, clamp, has_clamp, static_cast<cudaStream_t>(stream)
 
 extern "C" int lvg_filtered_lrelu_bwd_f32(LVG_FLRELU_BWD_ARGS) {
-  return static_cast<int>(launch<float>(LVG_FLRELU_BWD_PASS));
-}
-
-extern "C" int lvg_filtered_lrelu_bwd_bf16(LVG_FLRELU_BWD_ARGS) {
-  return static_cast<int>(launch<__nv_bfloat16>(LVG_FLRELU_BWD_PASS));
+  return static_cast<int>(launch(LVG_FLRELU_BWD_PASS));
 }
 
 extern "C" const char* lvg_cuda_error_string(int err) {

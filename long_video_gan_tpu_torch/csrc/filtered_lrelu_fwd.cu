@@ -1,6 +1,7 @@
-// filtered_lrelu forward for Hopper (sm_90a): zero-stuff upsample + up-FIR,
-// gain * leaky ReLU, clamp, down-FIR + decimate, on maps whose bias is already
-// added. Plain C interface, loaded with ctypes by ops/filtered_lrelu_cuda.py.
+// filtered_lrelu forward for Hopper (sm_90a) on f32 maps: zero-stuff upsample
+// + up-FIR, gain * leaky ReLU, clamp, down-FIR + decimate, on maps whose bias
+// is already added. Plain C interface, loaded with ctypes by
+// ops/filtered_lrelu_cuda.py. bf16 maps go to filtered_lrelu_tc.cu.
 //
 // Replaces: long_video_gan_tpu/ops/pallas/filtered_lrelu_packed.py
 // `_packed_fwd` (the lane-packed Pallas kernel on the TPU). Same function:
@@ -28,7 +29,6 @@
 // operators were TPU layout devices and have no counterpart here.
 
 #include <climits>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -45,15 +45,6 @@ struct Geometry {
   int i_size;  // input patch edge: (u_size + fu_taps - 2) / up + 1
   float gain, slope, clamp;
 };
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 __host__ __device__ __forceinline__ int floor_div(int a, int b) {  // b > 0
   return a >= 0 ? a / b : -((-a + b - 1) / b);
@@ -72,9 +63,8 @@ __host__ __device__ __forceinline__ int smem_floats(const Geometry& g) {
   return g.fu_taps + g.fd_taps + g.i_size * g.i_size + t_floats(g) + g.u_size * g.u_size;
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-filtered_lrelu_fwd_kernel(const T* __restrict__ x, T* __restrict__ y,
+filtered_lrelu_fwd_kernel(const float* __restrict__ x, float* __restrict__ y,
                           const float* __restrict__ taps, Geometry g) {
   extern __shared__ float smem[];
   const int U = g.u_size, I = g.i_size;
@@ -98,12 +88,12 @@ filtered_lrelu_fwd_kernel(const T* __restrict__ x, T* __restrict__ y,
   for (int k = threadIdx.x; k < g.fu_taps + g.fd_taps; k += blockDim.x) s_fu[k] = taps[k];
 
   // 1. Input patch, zero outside the image.
-  const T* xp = x + (size_t)plane * g.in_h * g.in_w;
+  const float* xp = x + (size_t)plane * g.in_h * g.in_w;
   for (int idx = threadIdx.x; idx < I * I; idx += blockDim.x) {
     const int r = idx / I, c = idx - r * I;
     const int gy = iy0 + r, gx = ix0 + c;
     float v = 0.f;
-    if (gy >= 0 && gy < g.in_h && gx >= 0 && gx < g.in_w) v = to_f32(xp[(size_t)gy * g.in_w + gx]);
+    if (gy >= 0 && gy < g.in_h && gx >= 0 && gx < g.in_w) v = xp[(size_t)gy * g.in_w + gx];
     s_x[idx] = v;
   }
   __syncthreads();
@@ -146,7 +136,7 @@ filtered_lrelu_fwd_kernel(const T* __restrict__ x, T* __restrict__ y,
   __syncthreads();
 
   // 5. Down pass along y, store the tile's in-range outputs.
-  T* yp = y + (size_t)plane * g.out_h * g.out_w;
+  float* yp = y + (size_t)plane * g.out_h * g.out_w;
   for (int idx = threadIdx.x; idx < kTile * kTile; idx += blockDim.x) {
     const int r = idx / kTile, c = idx - r * kTile;
     const int oy = oy0 + r, ox = ox0 + c;
@@ -154,11 +144,10 @@ filtered_lrelu_fwd_kernel(const T* __restrict__ x, T* __restrict__ y,
     const float* col = s_t + r * g.down * kTile + c;
     float acc = 0.f;
     for (int k = 0; k < g.fd_taps; ++k) acc += s_fd[k] * col[k * kTile];
-    yp[(size_t)oy * g.out_w + ox] = from_f32<T>(acc);
+    yp[(size_t)oy * g.out_w + ox] = acc;
   }
 }
 
-template <typename T>
 cudaError_t launch(const void* x, void* y, int planes, int in_h, int in_w, int out_h, int out_w,
                    int up, int down, int px0, int px1, int py0, int py1,
                    const float* taps, int fu_taps, int fd_taps,
@@ -187,11 +176,11 @@ cudaError_t launch(const void* x, void* y, int planes, int in_h, int in_w, int o
   const size_t smem = (size_t)smem_floats(g) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        filtered_lrelu_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        filtered_lrelu_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  filtered_lrelu_fwd_kernel<T><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(y), taps, g);
+  filtered_lrelu_fwd_kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<float*>(y), taps, g);
   return cudaGetLastError();
 }
 
@@ -209,11 +198,7 @@ cudaError_t launch(const void* x, void* y, int planes, int in_h, int in_w, int o
       fd_taps, gain, slope, clamp, static_cast<cudaStream_t>(stream)
 
 extern "C" int lvg_filtered_lrelu_fwd_f32(LVG_FLRELU_ARGS) {
-  return static_cast<int>(launch<float>(LVG_FLRELU_PASS));
-}
-
-extern "C" int lvg_filtered_lrelu_fwd_bf16(LVG_FLRELU_ARGS) {
-  return static_cast<int>(launch<__nv_bfloat16>(LVG_FLRELU_PASS));
+  return static_cast<int>(launch(LVG_FLRELU_PASS));
 }
 
 extern "C" const char* lvg_cuda_error_string(int err) {

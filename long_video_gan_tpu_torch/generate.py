@@ -21,6 +21,7 @@ from typing import Iterator, Optional
 import torch
 
 from .models import generator_lres, generator_sres
+from .utils.misc import cli_device
 
 
 def lres_length(num_frames: int, segment_length: int, temporal_context: int) -> int:
@@ -101,13 +102,14 @@ def main(argv: Optional[list[str]] = None) -> None:
     ap.add_argument("--truncation-psi", type=float, default=1.0)
     ap.add_argument("--prefetch", type=int, default=1,
                     help="sres segments enqueued ahead of the one being written")
-    ap.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu; without a CUDA device, pass cpu")
     args = ap.parse_args(argv)
+    device = cli_device(args.device)
 
     from .io.checkpoint import load_generator
     from .utils.video import save_image_grid, write_video_grid
 
-    device = torch.device(args.device)
     out_path = Path(args.output)
     out_path.parent.mkdir(parents=True, exist_ok=True)
     gen = torch.Generator(device="cpu").manual_seed(args.seed)

@@ -17,7 +17,8 @@ as in the JAX package:
   "conv", "matrix"  the composed path
   "packed"          K1 forward, K2 backward (`filtered_lrelu_cuda.py`; the
                     JAX package's lane-packed Pallas kernels), first-order
-                    differentiable
+                    differentiable, with the TPU kernel's bf16 stage rounding
+                    (`filtered_lrelu_bands.py`)
   "fused"           K3a forward, K3b backward (`filtered_lrelu_fused.py`; the
                     whole-image operator-product kernels), first-order
                     differentiable, with the TPU kernel's bf16 stage rounding

@@ -1,19 +1,22 @@
-"""Wrappers of the Hopper filtered_lrelu kernels: the forward
-(csrc/filtered_lrelu_fwd.cu, K1) and its gradient (csrc/filtered_lrelu_bwd.cu,
-K2), joined by a `torch.autograd.Function`.
+"""Wrappers of the Hopper filtered_lrelu kernels K1 (forward) and K2 (its
+input gradient), joined by a `torch.autograd.Function`: for bf16 maps the
+tensor-core kernels of csrc/filtered_lrelu_tc.cu, for f32 maps
+csrc/filtered_lrelu_fwd.cu and csrc/filtered_lrelu_bwd.cu.
 
 Counterpart of `long_video_gan_tpu/ops/pallas/filtered_lrelu_packed.py`
-`filtered_lrelu_packed` and its `_packed_op` custom VJP. The Function saves the
-bias-added input and recomputes the supersampled map in the backward, as the
-JAX package does. The backward is first-order only: it is a Function of its
-own whose backward raises, as `_first_order_only` makes the JAX VJP, so a
-second-order request raises. The bias is added outside the Function, so its
-gradient comes from autograd.
+`filtered_lrelu_packed` and its `_packed_op` custom VJP; the function is the
+TPU kernels', four (six) banded products with bf16 stage rounding
+(`filtered_lrelu_bands.py`). The Function saves the bias-added input and
+recomputes the supersampled map in the backward, as the JAX package does. The
+backward is first-order only: it is a Function of its own whose backward
+raises, as `_first_order_only` makes the JAX VJP, so a second-order request
+raises. The bias is added outside the Function, so its gradient comes from
+autograd.
 
 A CUDA tensor launches the kernels or raises; a CPU tensor takes the plain
-versions: `filtered_lrelu_composed` forward, and `filtered_lrelu_bwd_plain`
-(autograd of the composed op, U recomputed) backward. Nothing CUDA-specific is
-imported or built until the first launch.
+versions, `banded_fwd_plain` and `banded_bwd_plain`. Nothing CUDA-specific is
+imported or built until the first launch. `launches` / `bwd_launches` count
+K1 / K2 launches of either type.
 """
 
 from __future__ import annotations
@@ -26,15 +29,23 @@ from typing import Optional
 import torch
 
 from ..utils.nvcc import load_library
-from .filtered_lrelu import filtered_lrelu_composed, output_size
+from . import filtered_lrelu_bands as bands
+from .filtered_lrelu import output_size
 from .upfirdn2d import Filter, as_filter_tensor, parse_padding
 
 SOURCE = "long_video_gan_tpu_torch/csrc/filtered_lrelu_fwd.cu"
 BWD_SOURCE = "long_video_gan_tpu_torch/csrc/filtered_lrelu_bwd.cu"
+TC_SOURCE = "long_video_gan_tpu_torch/csrc/filtered_lrelu_tc.cu"
 
 # Kernel launches since the last reset (the caller sets them to 0).
 launches = 0
 bwd_launches = 0
+
+# The bf16 kernels' output (dX) tile edge. A 64-wide forward tile was slower
+# at 9 of the 11 bf16 layers of the 144x256 plan on the H100 (PERF.md).
+TILE = 32
+FWD_OPS = ("au_y", "au_x", "ad_y", "ad_x")
+BWD_OPS = ("au_y", "au_x", "adt_y", "adt_x", "aut_y", "aut_x")
 
 
 # Geometry arguments of every filtered_lrelu kernel's C function: planes,
@@ -46,18 +57,26 @@ GEOMETRY_ARGS = ([ctypes.c_int] * 11 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """Build (at first use) and load the forward kernel's library."""
+    """Build (at first use) and load the f32 forward kernel's library."""
     args = [ctypes.c_void_p] * 2 + GEOMETRY_ARGS + [ctypes.c_void_p]
-    return load_library("filtered_lrelu_fwd.cu", {"lvg_filtered_lrelu_fwd_f32": args,
-                                                  "lvg_filtered_lrelu_fwd_bf16": args})
+    return load_library("filtered_lrelu_fwd.cu", {"lvg_filtered_lrelu_fwd_f32": args})
 
 
 @functools.lru_cache(maxsize=None)
 def bwd_library() -> ctypes.CDLL:
-    """Build (at first use) and load the backward kernel's library."""
+    """Build (at first use) and load the f32 backward kernel's library."""
     args = [ctypes.c_void_p] * 3 + GEOMETRY_ARGS + [ctypes.c_int, ctypes.c_void_p]
-    return load_library("filtered_lrelu_bwd.cu", {"lvg_filtered_lrelu_bwd_f32": args,
-                                                  "lvg_filtered_lrelu_bwd_bf16": args})
+    return load_library("filtered_lrelu_bwd.cu", {"lvg_filtered_lrelu_bwd_f32": args})
+
+
+@functools.lru_cache(maxsize=None)
+def tc_library() -> ctypes.CDLL:
+    """Build (at first use) and load the bf16 tensor-core kernels' library."""
+    params = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+    return load_library("filtered_lrelu_tc.cu", {
+        "lvg_tc_fwd": [ctypes.c_void_p] * 4 + params + [ctypes.c_float] * 3 + [ctypes.c_void_p],
+        "lvg_tc_bwd": ([ctypes.c_void_p] * 5 + params + [ctypes.c_float] * 3
+                       + [ctypes.c_int, ctypes.c_void_p])})
 
 
 def filtered_lrelu_packed(x: torch.Tensor, fu: Filter = None, fd: Filter = None,
@@ -79,11 +98,8 @@ class _FilteredLReLU(torch.autograd.Function):
     def forward(ctx, x, fu, fd, up, down, padding, gain, slope, clamp):
         ctx.save_for_backward(x)
         ctx.args = (fu, fd, up, down, padding, gain, slope, clamp)
-        if x.device.type == "cpu":
-            return filtered_lrelu_composed(x, fu, fd, None, up=up, down=down, padding=padding,
-                                           gain=gain, slope=slope, clamp=clamp)
-        return filtered_lrelu_fwd_cuda(x, fu, fd, up=up, down=down, padding=padding,
-                                       gain=gain, slope=slope, clamp=clamp)
+        fn = bands.banded_fwd_plain if x.device.type == "cpu" else filtered_lrelu_fwd_cuda
+        return fn(x, fu, fd, up, down, padding, gain, slope, clamp)
 
     @staticmethod
     def backward(ctx, dy):
@@ -101,11 +117,8 @@ class _FilteredLReLUGrad(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, dy, args):
-        fu, fd, up, down, padding, gain, slope, clamp = args
-        kw = dict(up=up, down=down, padding=padding, gain=gain, slope=slope, clamp=clamp)
-        if x.device.type == "cpu":
-            return filtered_lrelu_bwd_plain(x, dy, fu, fd, **kw)
-        return filtered_lrelu_bwd_cuda(x, dy.contiguous(), fu, fd, **kw)
+        fn = bands.banded_bwd_plain if x.device.type == "cpu" else filtered_lrelu_bwd_cuda
+        return fn(x, dy.contiguous(), *args)
 
     @staticmethod
     def backward(ctx, ddx):
@@ -113,19 +126,6 @@ class _FilteredLReLUGrad(torch.autograd.Function):
             "filtered_lrelu impl='packed' is first-order only: its gradient is the K2 "
             "kernel, which has no gradient of its own. For second-order use, select "
             "impl='conv'; the composed path differentiates to any order.")
-
-
-def filtered_lrelu_bwd_plain(x: torch.Tensor, dy: torch.Tensor, fu: Filter, fd: Filter,
-                             up: int, down: int, padding, gain: float, slope: float,
-                             clamp: Optional[float]) -> torch.Tensor:
-    """K2's plain version: the gradient of `filtered_lrelu_composed` at the
-    bias-added `x` along `dy`, by autograd with the forward recomputed."""
-    with torch.enable_grad():
-        xr = x.detach().requires_grad_(True)
-        y = filtered_lrelu_composed(xr, fu, fd, None, up=up, down=down, padding=padding,
-                                    gain=gain, slope=slope, clamp=clamp)
-        (dx,) = torch.autograd.grad(y, xr, dy)
-    return dx
 
 
 def _kernel_taps(f: Filter, device: torch.device, scale: float) -> torch.Tensor:
@@ -172,6 +172,40 @@ def raise_on_error(lib: ctypes.CDLL, rc: int, which: str) -> None:
                            f"{lib.lvg_cuda_error_string(rc).decode()} (cudaError {rc})")
 
 
+@functools.lru_cache(maxsize=256)
+def _tc_plan(backward: bool, up: int, down: int, padding: tuple, nfu: int, nfd: int,
+             device: torch.device):
+    """A layer's tile plan, its operators' tap indices and K-windows on
+    `device`, and {operator: (offset, ld, first window)}."""
+    make = bands.bwd_tile_plan if backward else bands.fwd_tile_plan
+    plan = make(TILE, up, down, padding, nfu, nfd)
+    widths = {name: op.kb for name, op in plan.ops.items()}
+    if backward:   # U and dZ run side by side over one window width
+        widths["au_x"] = widths["adt_x"] = max(widths["au_x"], widths["adt_x"])
+    index, windows, where = bands.pack_ops(plan.ops, BWD_OPS if backward else FWD_OPS, widths)
+    return plan, index.to(device), windows.to(device), where
+
+
+def _aligned(t: torch.Tensor, width: int, step: int) -> int:
+    """1 if a kernel may load `t`'s patches as 4-byte words: even rows, even
+    patch starts, a 4-byte aligned base."""
+    return int(width % 2 == 0 and step % 2 == 0 and t.data_ptr() % 4 == 0)
+
+
+def _c_ints(values: list) -> tuple:
+    return (ctypes.c_int * len(values))(*values), len(values)
+
+
+def _tc_ops(index: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
+    """The operator blocks in bf16 on the card, gathered from the taps there
+    (no read-back to the host)."""
+    return torch.cat([taps, taps.new_zeros(1)])[index].to(torch.bfloat16)
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
 def filtered_lrelu_fwd_cuda(x: torch.Tensor, fu: Filter, fd: Filter, up: int, down: int,
                             padding, gain: float, slope: float,
                             clamp: Optional[float]) -> torch.Tensor:
@@ -179,19 +213,27 @@ def filtered_lrelu_fwd_cuda(x: torch.Tensor, fu: Filter, fd: Filter, up: int, do
     device); returns a new tensor of the same dtype."""
     global launches
     check_input(x, "tensor")
-    (px0, px1, py0, py1), out_h, out_w, taps, n_fu, n_fd = kernel_geometry(x, fu, fd, up, down,
-                                                                      padding)
+    pad, out_h, out_w, taps, n_fu, n_fd = kernel_geometry(x, fu, fd, up, down, padding)
     n, c, h, w = x.shape
     y = torch.empty((n, c, out_h, out_w), dtype=x.dtype, device=x.device)
-    lib = library()
-    fn = (lib.lvg_filtered_lrelu_fwd_bf16 if x.dtype == torch.bfloat16
-          else lib.lvg_filtered_lrelu_fwd_f32)
+    clamp_value = math.inf if clamp is None else float(clamp)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), y.data_ptr(), n * c, h, w, out_h, out_w, up, down,
-                px0, px1, py0, py1, taps.data_ptr(), n_fu, n_fd,
-                float(gain), float(slope), math.inf if clamp is None else float(clamp),
-                stream)
+        if x.dtype == torch.bfloat16:
+            plan, index, windows, where = _tc_plan(False, up, down, pad, n_fu, n_fd, x.device)
+            ops = _tc_ops(index, taps)
+            params = [n * c, h, w, out_h, out_w, TILE, plan.rp, plan.pp, plan.step,
+                      plan.y.base, plan.x.base, _aligned(x, w, plan.step)]
+            params += [v for name in FWD_OPS for v in where[name]]
+            params += [ops.numel(), windows.numel()]
+            lib = tc_library()
+            rc = lib.lvg_tc_fwd(x.data_ptr(), y.data_ptr(), ops.data_ptr(), windows.data_ptr(),
+                                *_c_ints(params), float(gain), float(slope), clamp_value,
+                                _stream(x))
+        else:
+            lib = library()
+            rc = lib.lvg_filtered_lrelu_fwd_f32(
+                x.data_ptr(), y.data_ptr(), n * c, h, w, out_h, out_w, up, down, *pad,
+                taps.data_ptr(), n_fu, n_fd, float(gain), float(slope), clamp_value, _stream(x))
     raise_on_error(lib, rc, "forward")
     launches += 1
     return y
@@ -208,22 +250,32 @@ def filtered_lrelu_bwd_cuda(x: torch.Tensor, dy: torch.Tensor, fu: Filter, fd: F
     if dy.dtype != x.dtype or dy.device != x.device:
         raise TypeError(f"filtered_lrelu backward: dy ({dy.dtype}, {dy.device}) must match "
                         f"x ({x.dtype}, {x.device})")
-    (px0, px1, py0, py1), out_h, out_w, taps, n_fu, n_fd = kernel_geometry(x, fu, fd, up, down,
-                                                                      padding)
+    pad, out_h, out_w, taps, n_fu, n_fd = kernel_geometry(x, fu, fd, up, down, padding)
     n, c, h, w = x.shape
     if tuple(dy.shape) != (n, c, out_h, out_w):
         raise ValueError(f"filtered_lrelu backward: dy shape {tuple(dy.shape)}, expected "
                          f"{(n, c, out_h, out_w)}")
     dx = torch.empty_like(x)
-    lib = bwd_library()
-    fn = (lib.lvg_filtered_lrelu_bwd_bf16 if x.dtype == torch.bfloat16
-          else lib.lvg_filtered_lrelu_bwd_f32)
+    clamp_args = (math.inf if clamp is None else float(clamp), 0 if clamp is None else 1)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), dy.data_ptr(), dx.data_ptr(), n * c, h, w, out_h, out_w, up,
-                down, px0, px1, py0, py1, taps.data_ptr(), n_fu, n_fd, float(gain),
-                float(slope), math.inf if clamp is None else float(clamp),
-                0 if clamp is None else 1, stream)
+        if x.dtype == torch.bfloat16:
+            plan, index, windows, where = _tc_plan(True, up, down, pad, n_fu, n_fd, x.device)
+            ops = _tc_ops(index, taps)
+            params = [n * c, h, w, out_h, out_w, TILE, plan.rp, plan.px, plan.pd,
+                      plan.dstep, plan.y.x_base, plan.x.x_base, plan.y.d_base, plan.x.d_base,
+                      _aligned(x, w, TILE), _aligned(dy, out_w, plan.dstep)]
+            params += [v for name in BWD_OPS for v in where[name]]
+            params += [ops.numel(), windows.numel()]
+            lib = tc_library()
+            rc = lib.lvg_tc_bwd(x.data_ptr(), dy.data_ptr(), dx.data_ptr(), ops.data_ptr(),
+                                windows.data_ptr(), *_c_ints(params), float(gain),
+                                float(slope), *clamp_args, _stream(x))
+        else:
+            lib = bwd_library()
+            rc = lib.lvg_filtered_lrelu_bwd_f32(
+                x.data_ptr(), dy.data_ptr(), dx.data_ptr(), n * c, h, w, out_h, out_w, up,
+                down, *pad, taps.data_ptr(), n_fu, n_fd, float(gain), float(slope),
+                *clamp_args, _stream(x))
     raise_on_error(lib, rc, "backward")
     bwd_launches += 1
     return dx

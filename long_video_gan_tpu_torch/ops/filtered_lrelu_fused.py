@@ -8,8 +8,9 @@ Counterpart of `long_video_gan_tpu/ops/pallas/filtered_lrelu_fused.py`
     out = Ad . act(Au . X . Bu^T) . Bd^T
     dX  = Au^T . (act'(U) * (Ad^T . dY . Bd)) . Bu,   U = Au . X . Bu^T
 
-with the banded per-axis operators of `_operators`. The function is these
-products in this order, with the TPU kernel's stores between them: for bf16
+with the banded per-axis operators of `filtered_lrelu_bands.operators`. The
+function is these products in this order, with the TPU kernel's stores
+between them: for bf16
 maps the operators, t1 = Au . X, Z = act(U) and t3 = Z . Bd^T (backward: t1,
 Ad^T . dY, dU and dU . Bu) round to bf16, and every sum is f32; f32 maps stay
 in f32 throughout. The Function saves the bias-added input and recomputes U in
@@ -17,8 +18,9 @@ the backward. The backward is first-order only: it is a Function of its own
 whose backward raises, as `_first_order_only` makes the JAX VJP.
 
 A CUDA tensor launches the kernels or raises; a CPU tensor takes the plain
-versions, `fused_fwd_plain` and `fused_bwd_plain`: the same products in
-PyTorch. Nothing CUDA-specific is built until the first launch.
+versions, `banded_fwd_plain` and `banded_bwd_plain` (`filtered_lrelu_bands.py`,
+shared with K1/K2, whose function this is too). Nothing CUDA-specific is built
+until the first launch.
 """
 
 from __future__ import annotations
@@ -31,8 +33,9 @@ from typing import Optional
 import torch
 
 from ..utils.nvcc import load_library
+from .filtered_lrelu_bands import banded_bwd_plain, banded_fwd_plain
 from .filtered_lrelu_cuda import GEOMETRY_ARGS, check_input, kernel_geometry, raise_on_error
-from .upfirdn2d import Filter, as_filter_tensor, axis_matrix, parse_padding
+from .upfirdn2d import Filter, parse_padding
 
 SOURCE = "long_video_gan_tpu_torch/csrc/filtered_lrelu_fused.cu"
 
@@ -73,7 +76,7 @@ class _FusedFilteredLReLU(torch.autograd.Function):
     def forward(ctx, x, fu, fd, up, down, padding, gain, slope, clamp):
         ctx.save_for_backward(x)
         ctx.args = (fu, fd, up, down, padding, gain, slope, clamp)
-        fn = fused_fwd_plain if x.device.type == "cpu" else fused_fwd_cuda
+        fn = banded_fwd_plain if x.device.type == "cpu" else fused_fwd_cuda
         return fn(x, fu, fd, up, down, padding, gain, slope, clamp)
 
     @staticmethod
@@ -88,7 +91,7 @@ class _FusedFilteredLReLUGrad(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, dy, args):
-        fn = fused_bwd_plain if x.device.type == "cpu" else fused_bwd_cuda
+        fn = banded_bwd_plain if x.device.type == "cpu" else fused_bwd_cuda
         return fn(x, dy.contiguous(), *args)
 
     @staticmethod
@@ -97,83 +100,6 @@ class _FusedFilteredLReLUGrad(torch.autograd.Function):
             "filtered_lrelu impl='fused' is first-order only: its gradient is the K3b "
             "kernel, which has no gradient of its own. For second-order use, select "
             "impl='conv'; the composed path differentiates to any order.")
-
-
-# ---------------------------------------------------------------------------
-# Plain versions: the operator products in PyTorch.
-
-
-@functools.lru_cache(maxsize=256)
-def _operators(h: int, w: int, up: int, down: int, padding: tuple, fu_taps: tuple,
-               fd_taps: tuple):
-    """The four banded f32 [out, in] operators Au, Bu, Ad, Bd on the CPU. The
-    per-axis gain is `up`, so that the two up passes compose to up**2."""
-    px0, px1, py0, py1 = padding
-    fu = torch.tensor(fu_taps, dtype=torch.float32)
-    fd = torch.tensor(fd_taps, dtype=torch.float32)
-    au = axis_matrix(fu, h, up, 1, py0, py1, False, float(up))
-    bu = axis_matrix(fu, w, up, 1, px0, px1, False, float(up))
-    ad = axis_matrix(fd, au.shape[0], 1, down, 0, 0, False, 1.0)
-    bd = axis_matrix(fd, bu.shape[0], 1, down, 0, 0, False, 1.0)
-    return au, bu, ad, bd
-
-
-def _taps(f: Filter) -> tuple:
-    f = as_filter_tensor(f, torch.device("cpu"))
-    if f.numel() != 1 and f.ndim != 1:
-        raise ValueError(f"filtered_lrelu impl='fused' takes separable (1-D) filters, "
-                         f"got shape {tuple(f.shape)}")
-    return tuple(f.reshape(-1).tolist())
-
-
-def _plain_setup(x: torch.Tensor, fu: Filter, fd: Filter, up: int, down: int, padding):
-    """The operators on x's device, their entries rounded to the maps' type
-    (as the TPU kernel holds them) and held in f32, and the stage rounding."""
-    ops = _operators(x.shape[2], x.shape[3], up, down, parse_padding(padding), _taps(fu),
-                     _taps(fd))
-    ops = [m.to(device=x.device, dtype=x.dtype).float() for m in ops]
-    return ops, lambda t: t.to(x.dtype).float()
-
-
-def _act(u: torch.Tensor, gain: float, slope: float, clamp: Optional[float]) -> torch.Tensor:
-    z = torch.where(u >= 0, u, u * slope) * gain
-    return z if clamp is None else z.clamp(-clamp, clamp)
-
-
-def _act_grad(u: torch.Tensor, gain: float, slope: float,
-              clamp: Optional[float]) -> torch.Tensor:
-    g = torch.where(u >= 0, gain, gain * slope)
-    if clamp is not None:
-        zg = torch.where(u >= 0, u, u * slope) * gain
-        g = torch.where((zg > -clamp) & (zg < clamp), g, 0.0)
-    return g
-
-
-def fused_fwd_plain(x: torch.Tensor, fu: Filter, fd: Filter, up: int, down: int, padding,
-                    gain: float, slope: float, clamp: Optional[float]) -> torch.Tensor:
-    """K3a's plain version on bias-added NCHW `x`."""
-    (au, bu, ad, bd), stage = _plain_setup(x, fu, fd, up, down, padding)
-    n, c, h, w = x.shape
-    t1 = stage(au @ x.reshape(n * c, h, w).float())
-    z = stage(_act(t1 @ bu.T, gain, slope, clamp))
-    t3 = stage(z @ bd.T)
-    out = (ad @ t3).to(x.dtype)
-    return out.reshape(n, c, out.shape[1], out.shape[2])
-
-
-def fused_bwd_plain(x: torch.Tensor, dy: torch.Tensor, fu: Filter, fd: Filter, up: int,
-                    down: int, padding, gain: float, slope: float,
-                    clamp: Optional[float]) -> torch.Tensor:
-    """K3b's plain version: dX at bias-added NCHW `x` along `dy`, U
-    recomputed."""
-    (au, bu, ad, bd), stage = _plain_setup(x, fu, fd, up, down, padding)
-    n, c, h, w = x.shape
-    t1 = stage(au @ x.reshape(n * c, h, w).float())
-    g = _act_grad(t1 @ bu.T, gain, slope, clamp)
-    s1 = stage(ad.T @ dy.reshape(n * c, *dy.shape[2:]).float())
-    du = stage((s1 @ bd) * g)
-    dt1 = stage(du @ bu)
-    return (au.T @ dt1).to(x.dtype).reshape(n, c, h, w)
 
 
 # ---------------------------------------------------------------------------

@@ -6,9 +6,9 @@ the layer geometries of the 144x256 sres plan: K1 forward and K2 backward
 Counterpart of `scripts/tpu_selftest.py`: filters, paddings and factors come
 from the port's own `SynthesisLayer`s, with `frames` x `out_channels` planes.
 Each kernel's reference is its plain version on the same input, computed
-with TF32 off: in f32 for K1, K2, K4 and K5, and for K3a/K3b in the input's
-type, whose bf16 stage rounding is part of K3's function. Timings are in the
-input's type. Used by `chip_smoke.py`
+with TF32 off: for K1-K3b in the input's type, whose bf16 stage rounding is
+part of their function (`filtered_lrelu_bands.py`), and in f32 for K4 and K5.
+Timings are in the input's type. Used by `chip_smoke.py`
 and `tests/test_torch_filtered_lrelu_cuda.py`, so the two hold the kernels to
 the same cases and bars.
 """
@@ -23,8 +23,8 @@ from typing import Callable, Optional
 import torch
 
 from .models.generator_sres import SynthesisLayer, SynthesisNetwork
-from .ops import (filtered_lrelu_cuda, filtered_lrelu_exact, filtered_lrelu_fused,
-                  filtered_lrelu_polyphase)
+from .ops import (filtered_lrelu_bands, filtered_lrelu_cuda, filtered_lrelu_exact,
+                  filtered_lrelu_fused, filtered_lrelu_polyphase)
 from .ops.filtered_lrelu import filtered_lrelu_composed, output_size
 from .ops.upfirdn2d import axis_nonzeros, parse_padding
 
@@ -41,6 +41,27 @@ EXACT_F32_TOL = 1e-6
 # layers and fails it (tests/test_torch_filtered_lrelu_cuda.py). K3b keeps
 # the generic bar: it reads 2.7e-3 to 5.1e-3 there on the H100.
 STAGE_ROUNDED_TOL = 2.0 ** -9
+# K1 in bf16: max-abs within one bf16 ulp of the output's scale. It rounds the
+# same stages as its plain version, but sums each band in tensor-core order,
+# so a rounding flips now and then and carries through the later stages. That
+# bar alone would pass the products with f32 stages (or the W pass first), so
+# besides, at most K1_ULP_SHARE of the elements may lie more than one bf16 ulp
+# of their own from the plain version. The H100 reads about 1e-6 at the plan's
+# bf16 layers; f32 stages put a hundred times the bar there
+# (tests/test_torch_filtered_lrelu_cuda.py).
+K1_TOL = 2.0 ** -7
+K1_ULP_SHARE = 1e-4
+# K2 in bf16: act' jumps at U = 0, so where another summation order puts a U
+# near 0 on the other side, dX moves by up to a few hundredths of its scale
+# (the bar of TOLS). Held besides: the error beyond the most such flips can
+# move each element (`filtered_lrelu_bands.act_flip_bound` over the U within
+# FLIP_NEAR) within one bf16 ulp of the scale, and at most K2_OVER_SHARE of
+# the elements more than one bf16 ulp of the scale off (the H100 reads at
+# most 2e-8, every such element within reach of a U near 0; f32 stages put
+# fifty times the bar or more there).
+FLIP_NEAR = 2.0 ** -7
+K2_RESIDUAL_TOL = 2.0 ** -7
+K2_OVER_SHARE = 1e-5
 
 # The bf16 layers of the 144x256 plan that launch K1/K2 (L14, ToRGB, is an
 # identity resample and takes the composed path).
@@ -72,6 +93,8 @@ class Kernel:
     f32_tol: float = TOLS[torch.float32]
     bf16_tol: float = TOLS[torch.bfloat16]
     f32_arithmetic: bool = False
+    bf16_ulp_share: Optional[float] = None   # K1_ULP_SHARE's bar in bf16
+    bf16_flip_bars: bool = False             # K2's bars beyond act' flips in bf16
 
     def tol(self, dtype: torch.dtype) -> float:
         return self.f32_tol if dtype == torch.float32 else self.bf16_tol
@@ -86,15 +109,16 @@ def _composed(x, fu, fd, **kw):
     return filtered_lrelu_composed(x, fu, fd, None, **kw)
 
 
+_bands = filtered_lrelu_bands
 KERNELS = {k.name: k for k in (
-    Kernel("K1", False, filtered_lrelu_cuda.filtered_lrelu_fwd_cuda, _composed),
-    Kernel("K2", True, filtered_lrelu_cuda.filtered_lrelu_bwd_cuda,
-           filtered_lrelu_cuda.filtered_lrelu_bwd_plain),
-    Kernel("K3a", False, filtered_lrelu_fused.fused_fwd_cuda,
-           filtered_lrelu_fused.fused_fwd_plain, f32_reference=False,
-           bf16_tol=STAGE_ROUNDED_TOL),
-    Kernel("K3b", True, filtered_lrelu_fused.fused_bwd_cuda,
-           filtered_lrelu_fused.fused_bwd_plain, f32_reference=False),
+    Kernel("K1", False, filtered_lrelu_cuda.filtered_lrelu_fwd_cuda, _bands.banded_fwd_plain,
+           f32_reference=False, bf16_tol=K1_TOL, bf16_ulp_share=K1_ULP_SHARE),
+    Kernel("K2", True, filtered_lrelu_cuda.filtered_lrelu_bwd_cuda, _bands.banded_bwd_plain,
+           f32_reference=False, bf16_flip_bars=True),
+    Kernel("K3a", False, filtered_lrelu_fused.fused_fwd_cuda, _bands.banded_fwd_plain,
+           f32_reference=False, bf16_tol=STAGE_ROUNDED_TOL),
+    Kernel("K3b", True, filtered_lrelu_fused.fused_bwd_cuda, _bands.banded_bwd_plain,
+           f32_reference=False),
     Kernel("K4", False, filtered_lrelu_exact.exact_fwd_cuda, filtered_lrelu_exact.exact_plain,
            f32_tol=EXACT_F32_TOL, f32_arithmetic=True),
     Kernel("K5", False, filtered_lrelu_polyphase.polyphase_fwd_cuda,
@@ -149,6 +173,21 @@ class LayerCheck:
     plain_ms: Optional[float] = None
     bound_ms: Optional[float] = None
     bound_by: Optional[str] = None
+    composed_rel_err: Optional[float] = None   # against the f32 composed op
+    ulp_share: Optional[float] = None   # elements more than one bf16 ulp of their own off
+    # K2's readings beyond act' flips: the largest error beyond the flip bound
+    # (relative), the elements more than K2_RESIDUAL_TOL of the scale off, how
+    # many of those a flip can reach, the share of all elements a flip can
+    # reach, and the elements checked.
+    beyond_flips_rel_err: Optional[float] = None
+    over: Optional[int] = None
+    over_in_reach: Optional[int] = None
+    reach_share: Optional[float] = None
+    elements: Optional[int] = None
+
+    @property
+    def over_share(self) -> float:
+        return self.over / self.elements
 
 
 @contextlib.contextmanager
@@ -183,30 +222,63 @@ def _slices(frames: int) -> list[slice]:
     return [slice(s, s + REF_FRAMES) for s in range(0, frames, REF_FRAMES)]
 
 
-def _against_plain(name: str, out: torch.Tensor, dtype: torch.dtype, plain,
-                   tol: float) -> LayerCheck:
+def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 values at |v| (8 significant bits), 0 at v = 0."""
+    return torch.ldexp(torch.ones_like(v), torch.frexp(v).exponent - 8) * (v != 0)
+
+
+def _against_plain(name: str, out: torch.Tensor, dtype: torch.dtype, plain, tol: float,
+                   ulp_share_tol: Optional[float] = None, flip_bound=None) -> LayerCheck:
     """`out` (the kernel's, launched once at full size) against `plain(s)`,
     the plain version (TF32 off) of the frames in slice `s`, computed
     REF_FRAMES frames at a time so that its memory stays bounded at training
-    size; error and scale are the maxima over the slices."""
-    err = scale = 0.0
+    size; error and scale are the maxima over the slices. `ulp_share_tol`:
+    also bars the share of elements more than one bf16 ulp of their own off.
+    `flip_bound(s)`: the act' flip bound of slice s; then K2's bars beyond it
+    apply too (K2_RESIDUAL_TOL, K2_OVER_SHARE), with `out`'s own scale as the
+    scale of the elements counted off."""
+    err = scale = beyond = 0.0
     ref_frames, ref_rest = 0, None
+    n_ulp = n_over = n_over_reach = n_reach = 0
+    over_at = None if flip_bound is None else K2_RESIDUAL_TOL * out.abs().max().float().item()
     with tf32_off():
         for s in _slices(out.shape[0]):
             ref = plain(s).float()
             ref_frames += ref.shape[0]
             ref_rest = tuple(ref.shape[1:])
             if tuple(out[s].shape) == tuple(ref.shape):
-                err = max(err, (out[s].float() - ref).abs().max().item())
+                d = (out[s].float() - ref).abs()
+                err = max(err, d.max().item())
                 scale = max(scale, ref.abs().max().item())
+                if ulp_share_tol is not None:
+                    n_ulp += int((d > bf16_ulp(ref)).sum())
+                if flip_bound is not None:
+                    e = flip_bound(s)
+                    beyond = max(beyond, (d - e).max().item())
+                    over = d > over_at
+                    n_over += int(over.sum())
+                    n_over_reach += int((over & (e > 0)).sum())
+                    n_reach += int((e > 0).sum())
+                    del e, over
+                del d
             else:
                 err = math.inf
             del ref
     scale = scale or 1.0
-    return LayerCheck(name=name, shape=tuple(out.shape), dtype=str(dtype).split(".")[-1],
-                      max_abs_err=err, rel_err=err / scale, tol=tol,
-                      ok=tuple(out.shape) == (ref_frames,) + ref_rest and out.dtype == dtype
-                      and err <= tol * scale)
+    check = LayerCheck(name=name, shape=tuple(out.shape), dtype=str(dtype).split(".")[-1],
+                       max_abs_err=err, rel_err=err / scale, tol=tol,
+                       ok=tuple(out.shape) == (ref_frames,) + ref_rest and out.dtype == dtype
+                       and err <= tol * scale)
+    if ulp_share_tol is not None:
+        check.ulp_share = n_ulp / out.numel()
+        check.ok = check.ok and check.ulp_share <= ulp_share_tol
+    if flip_bound is not None:
+        check.beyond_flips_rel_err = beyond / scale
+        check.over, check.over_in_reach, check.elements = n_over, n_over_reach, out.numel()
+        check.reach_share = n_reach / out.numel()
+        check.ok = (check.ok and check.beyond_flips_rel_err <= K2_RESIDUAL_TOL
+                    and check.over_share <= K2_OVER_SHARE)
+    return check
 
 
 def _layer_inputs(layer: SynthesisLayer, frames: int, dtype: torch.dtype,
@@ -262,15 +334,37 @@ def bound(layer: SynthesisLayer, frames: int, dtype: torch.dtype, backward: bool
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
+def executed_flops(layer: SynthesisLayer, frames: int, kernel: str) -> float:
+    """Operations the bf16 tensor-core K1 (forward) or K2 (gradient) executes
+    on one layer: two per multiply-add of every visited 16-wide K-block
+    (`filtered_lrelu_bands.fwd_executed_macs`), band zeros included."""
+    bands, cuda = filtered_lrelu_bands, filtered_lrelu_cuda
+    h = layer.in_size[1] + layer.kernel - 1
+    w = layer.in_size[0] + layer.kernel - 1
+    up, down, pad = layer.up_factor, layer.down_factor, parse_padding(layer.padding)
+    backward = kernel == "K2"
+    plan, _, _, where = cuda._tc_plan(backward, up, down, pad, layer.up_filter.shape[0],
+                                      layer.down_filter.shape[0], torch.device("cpu"))
+    widths = {name: ref[3] for name, ref in where.items()}
+    hw = (h, w) if backward else output_size(h, w, layer.up_filter, layer.down_filter, up,
+                                             down, pad)
+    ty, tx = bands.tile_counts(*hw, cuda.TILE)
+    count = bands.bwd_executed_macs if backward else bands.fwd_executed_macs
+    return 2.0 * count(plan, widths, ty * tx * frames * layer.out_channels)
+
+
 def check_layer(layer: SynthesisLayer, name: str, frames: int, dtype: torch.dtype,
                 device: torch.device, generator: torch.Generator, time_it: bool = False,
-                kernel: str = "K1") -> LayerCheck:
+                kernel: str = "K1", vs_composed: bool = False) -> LayerCheck:
     """`kernel` against its plain version (TF32 off) on one layer's geometry,
     `frames` x out_channels planes and, for a backward, a seeded output
     gradient; optionally times the kernel (mean of 10 launches) and the plain
     version (mean of 3, REF_FRAMES frames at a time) in `dtype` with CUDA
-    events, and gives the layer's bound. A CPU tensor runs the plain version
-    against itself."""
+    events, and gives the layer's bound. `vs_composed` (a forward): also
+    holds the output to the f32 composed op on the input cast to f32, at the
+    bf16 bar, the cost of the stage rounding. In bf16, K1 is also held to
+    K1_ULP_SHARE and K2 to its bars beyond act' flips. A CPU tensor runs the
+    plain version against itself."""
     k = KERNELS[kernel]
     x, fu, fd, kw = _layer_inputs(layer, frames, dtype, device, generator)
     args = (x,)
@@ -281,10 +375,22 @@ def check_layer(layer: SynthesisLayer, name: str, frames: int, dtype: torch.dtyp
         args = (x, dy.to(device=device, dtype=dtype))
 
     ref = (lambda a: a.float()) if k.f32_reference else (lambda a: a)
+    bf16 = dtype == torch.bfloat16
+    flip_bound = None
+    if bf16 and k.bf16_flip_bars:
+        def flip_bound(s):
+            return filtered_lrelu_bands.act_flip_bound(*(a[s] for a in args), fu, fd, **kw,
+                                                       near=FLIP_NEAR)
     with torch.no_grad():
         out = k.run(*args, fu, fd, **kw)
         check = _against_plain(name, out, dtype, lambda s: k.plain(
-            *(ref(a[s]) for a in args), fu, fd, **kw), k.tol(dtype))
+            *(ref(a[s]) for a in args), fu, fd, **kw), k.tol(dtype),
+            k.bf16_ulp_share if bf16 else None, flip_bound)
+        if vs_composed:
+            composed = _against_plain(name, out, dtype, lambda s: _composed(
+                x[s].float(), fu, fd, **kw), TOLS[torch.bfloat16])
+            check.composed_rel_err = composed.rel_err
+            check.ok = check.ok and composed.ok
         if time_it:
             check.ms = _time_ms(lambda: k.run(*args, fu, fd, **kw))
             check.plain_ms = _time_ms(lambda: [k.plain(*(a[s] for a in args), fu, fd, **kw)

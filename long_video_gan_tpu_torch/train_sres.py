@@ -32,6 +32,7 @@ import torch
 
 from .train.gan_sres import SuperResVideoGAN
 from .train.stats import Collector
+from .utils.misc import cli_device
 
 
 def build_config(dataset_dir: str, total_batch: int, grad_accum: int, r1_gamma: float,
@@ -193,8 +194,10 @@ def main(argv: Optional[list[str]] = None) -> str:
     parser.add_argument("--preset", choices=["full", "tiny"], default="full")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--total-steps", type=int, default=None)
-    parser.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (default) or cpu; without a CUDA device, pass cpu")
     args = parser.parse_args(argv)
+    device = cli_device(args.device)
 
     from .utils.video import get_next_run_dir
 
@@ -209,7 +212,7 @@ def main(argv: Optional[list[str]] = None) -> str:
     print(f"Run dir: {run_dir}  seed: {args.seed}")
     with open(Path(run_dir, "config.json"), "w") as fp:
         json.dump(dict(c, run_dir=run_dir, seed=args.seed, device=args.device), fp, indent=2)
-    train(c, run_dir, args.seed, torch.device(args.device))
+    train(c, run_dir, args.seed, device)
     return run_dir
 
 

@@ -1,8 +1,10 @@
-"""Small shared helpers (shape contracts)."""
+"""Small shared helpers (shape contracts, the CLIs' device)."""
 
 from __future__ import annotations
 
 from typing import Optional, Sequence
+
+import torch
 
 
 def assert_shape(x, ref_shape: Sequence[Optional[int]]) -> None:
@@ -15,3 +17,14 @@ def assert_shape(x, ref_shape: Sequence[Optional[int]]) -> None:
     for idx, (size, ref_size) in enumerate(zip(x.shape, ref_shape)):
         if ref_size is not None and int(size) != int(ref_size):
             raise AssertionError(f"Wrong size for dimension {idx}: got {size}, expected {ref_size}")
+
+
+def cli_device(name: str) -> torch.device:
+    """The device a CLI runs on: `--device` as given (default "cuda"). A CUDA
+    device that is not there raises before anything is built; the CPU runs
+    only when asked for."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {name}: no CUDA device is available; pass "
+                           f"--device cpu to run on the CPU")
+    return device

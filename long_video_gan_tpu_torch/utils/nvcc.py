@@ -4,7 +4,8 @@ The library gets a plain C interface (no PyTorch headers), which keeps a build
 to seconds. It is built at first use into `long_video_gan_tpu_torch/_build/`,
 named by a hash of the source, the shared `csrc/*.cuh` headers and the flags,
 so an edited source rebuilds and an unchanged one loads the library already
-there.
+there. The compiler's report (ptxas: registers, shared memory and spills of
+every kernel) is kept beside the library as `<library>.log`.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def find_nvcc() -> str:
@@ -56,6 +57,7 @@ def build_library(source_name: str) -> Path:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
                                f"{proc.stdout}{proc.stderr}")
+        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
         os.replace(tmp, out)
     finally:
         tmp.unlink(missing_ok=True)

@@ -3,8 +3,9 @@
 (`filtered_lrelu_pallas_v2`).
 
 CPU part: a CPU tensor never launches a kernel, whatever the impl or entry
-point; the selftest's checks run plain against plain there; importing the
-wrappers needs no nvcc.
+point, and "packed" computes its plain version, the stage-rounded banded
+products (`filtered_lrelu_bands.py`); the selftest's checks run plain against
+plain there; importing the wrappers needs no nvcc.
 
 CUDA part (marker `cuda`, skipped without a card): each kernel against its
 plain version at the layer geometries of the 144x256 sres plan that launch
@@ -14,6 +15,7 @@ without jax installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_filtered_lrelu_cuda.py
 """
 
+import math
 import os
 import subprocess
 import sys
@@ -24,9 +26,11 @@ import torch
 
 from long_video_gan_tpu_torch import selftest
 from long_video_gan_tpu_torch.models.generator_sres import SynthesisLayer
-from long_video_gan_tpu_torch.ops import (filtered_lrelu_cuda, filtered_lrelu_exact,
-                                          filtered_lrelu_fused, filtered_lrelu_polyphase)
-from long_video_gan_tpu_torch.ops.filtered_lrelu import filtered_lrelu, filtered_lrelu_composed
+from long_video_gan_tpu_torch.ops import (filtered_lrelu_bands, filtered_lrelu_cuda,
+                                          filtered_lrelu_exact, filtered_lrelu_fused,
+                                          filtered_lrelu_polyphase)
+from long_video_gan_tpu_torch.ops.filtered_lrelu import (filtered_lrelu, filtered_lrelu_composed,
+                                                        output_size)
 from long_video_gan_tpu_torch.ops.filters import design_kaiser_lowpass
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -49,8 +53,11 @@ def test_cpu_tensor_never_launches(impl, dtype):
     filtered_lrelu_cuda.launches = 0
     got = filtered_lrelu(x, FU, FU, b, up=2, down=2, padding=(9, 8, 9, 8), clamp=256.0,
                          impl=impl)
-    want = filtered_lrelu_composed(x, FU, FU, b, up=2, down=2, padding=(9, 8, 9, 8),
-                                   clamp=256.0)
+    kw = dict(up=2, down=2, padding=(9, 8, 9, 8), gain=2 ** 0.5, slope=0.2, clamp=256.0)
+    if impl == "packed":
+        want = filtered_lrelu_bands.banded_fwd_plain(x + b.reshape(1, -1, 1, 1), FU, FU, **kw)
+    else:
+        want = filtered_lrelu_composed(x, FU, FU, b, **kw)
     assert filtered_lrelu_cuda.launches == 0
     assert got.dtype == dtype
     torch.testing.assert_close(got, want, rtol=0, atol=0)
@@ -64,9 +71,10 @@ LAYER_KW = dict(w_dim=8, is_torgb=False, is_critically_sampled=False, use_fp16=T
 
 def test_auto_policy_layer_on_cpu_takes_plain():
     """A bf16 SynthesisLayer with resample_impl="auto" selects the kernel
-    ("packed"); on a CPU tensor the wrapper computes the plain version."""
+    ("packed"); on a CPU tensor the wrapper computes the plain version, the
+    stage-rounded products that "fused" computes there too."""
     layer = SynthesisLayer(**LAYER_KW, resample_impl="auto")
-    plain = SynthesisLayer(**LAYER_KW, resample_impl="conv")
+    plain = SynthesisLayer(**LAYER_KW, resample_impl="fused")
     g = torch.Generator().manual_seed(1)
     for p in layer.parameters():
         p.data.copy_(torch.randn(p.shape, generator=g))
@@ -138,7 +146,24 @@ def test_selftest_checks_every_kernel_on_cpu(kernel):
                                  torch.Generator().manual_seed(4), kernel=kernel)
     assert check.ok and check.max_abs_err == 0.0, check
     assert check.tol == (1e-6 if kernel == "K4" else 1e-4)
-    assert selftest.KERNELS[kernel].tol(torch.bfloat16) == (2 ** -9 if kernel == "K3a" else 0.03)
+    bf16_tol = {"K1": 2 ** -7, "K3a": 2 ** -9}.get(kernel, 0.03)
+    assert selftest.KERNELS[kernel].tol(torch.bfloat16) == bf16_tol
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+def test_selftest_bf16_bars_on_cpu(kernel):
+    """In bf16 the selftest holds K1 to its share of elements off by more than
+    one ulp and K2 to its bars beyond act' flips; plain against plain on a
+    CPU tensor reads zero on each and reports the share a flip can reach."""
+    layer = SynthesisLayer(**LAYER_KW, resample_impl="auto")
+    check = selftest.check_layer(layer, "small", 3, torch.bfloat16, torch.device("cpu"),
+                                 torch.Generator().manual_seed(5), kernel=kernel)
+    assert check.ok and check.max_abs_err == 0.0, check
+    if kernel == "K1":
+        assert check.ulp_share == 0.0 and check.over is None, check
+    else:
+        assert check.ulp_share is None and check.over == check.beyond_flips_rel_err == 0, check
+        assert check.elements == math.prod(check.shape) and 0.0 < check.reach_share <= 1.0, check
 
 
 def test_served_layers_of_the_plan(plan_layers):
@@ -170,12 +195,109 @@ def test_k3a_bar_refuses_unrounded_stages(idx, plan_layers):
     tol = selftest.KERNELS["K3a"].tol(torch.bfloat16)
 
     def plain(s):
-        return filtered_lrelu_fused.fused_fwd_plain(x[s], fu, fd, **kw)
+        return filtered_lrelu_bands.banded_fwd_plain(x[s], fu, fd, **kw)
 
-    unrounded = filtered_lrelu_fused.fused_fwd_plain(x.float(), fu, fd, **kw).bfloat16()
+    unrounded = filtered_lrelu_bands.banded_fwd_plain(x.float(), fu, fd, **kw).bfloat16()
     check = selftest._against_plain(name, unrounded, torch.bfloat16, plain, tol)
     assert not check.ok, check
     assert selftest._against_plain(name, plain(slice(None)), torch.bfloat16, plain, tol).ok
+
+
+def _plan_case(layer, idx, planes=8):
+    """A plan layer's seeded bf16 input on `planes` planes, its output
+    gradient, filters and keyword arguments."""
+    g = torch.Generator().manual_seed(idx)
+    x, fu, fd, kw = selftest._layer_inputs(layer, 1, torch.bfloat16, torch.device("cpu"), g)
+    x = x[:, :planes].contiguous()
+    out_hw = output_size(x.shape[2], x.shape[3], fu, fd, kw["up"], kw["down"], kw["padding"])
+    dy = torch.randn((1, planes) + out_hw, generator=g).bfloat16()
+    return x, dy, fu, fd, kw
+
+
+@pytest.mark.parametrize("variant", ["f32_stages", "w_first"])
+@pytest.mark.parametrize("idx", selftest.KERNEL_LAYERS)
+def test_k1_bars_refuse_unrounded_stages(idx, variant, plan_layers):
+    """K1's bf16 bars tell the stage-rounded function from the ones it must
+    not compute: the same products with f32 stages, and the composed op in
+    f32 (W pass first, the order of the f32 kernel) fail them at each bf16
+    plan layer on 8 planes, through the share of elements more than one bf16
+    ulp of their own off (the max-abs bar alone passes some); the plain
+    version passes."""
+    name, layer = plan_layers[idx]
+    x, _, fu, fd, kw = _plan_case(layer, idx)
+    k1 = selftest.KERNELS["K1"]
+    bars = (k1.tol(torch.bfloat16), k1.bf16_ulp_share)
+
+    def plain(s):
+        return filtered_lrelu_bands.banded_fwd_plain(x[s], fu, fd, **kw)
+
+    if variant == "f32_stages":
+        other = filtered_lrelu_bands.banded_fwd_plain(x.float(), fu, fd, **kw).bfloat16()
+    else:
+        other = filtered_lrelu_composed(x.float(), fu, fd, None, **kw).bfloat16()
+    check = selftest._against_plain(name, other, torch.bfloat16, plain, *bars)
+    assert not check.ok and check.ulp_share > 10 * selftest.K1_ULP_SHARE, check
+    check = selftest._against_plain(name, plain(slice(None)), torch.bfloat16, plain, *bars)
+    assert check.ok and check.ulp_share == 0.0, check
+
+
+def _k2_bars(x, dy, fu, fd, kw):
+    """selftest's K2 bars as `_against_plain` arguments, the plain version and
+    the act' flip bound of a slice."""
+    def plain(s):
+        return filtered_lrelu_bands.banded_bwd_plain(x[s], dy[s], fu, fd, **kw)
+
+    def flip_bound(s):
+        return filtered_lrelu_bands.act_flip_bound(x[s], dy[s], fu, fd, **kw,
+                                                   near=selftest.FLIP_NEAR)
+
+    return dict(plain=plain, tol=selftest.KERNELS["K2"].tol(torch.bfloat16),
+                flip_bound=flip_bound)
+
+
+@pytest.mark.parametrize("idx", selftest.KERNEL_LAYERS)
+def test_k2_bars_refuse_unrounded_stages(idx, plan_layers):
+    """K2's bf16 bars refuse the same products with f32 stages at each bf16
+    plan layer on 8 planes (through the share of elements more than one bf16
+    ulp of the scale off), and the plain version passes them exactly."""
+    name, layer = plan_layers[idx]
+    x, dy, fu, fd, kw = _plan_case(layer, idx)
+    bars = _k2_bars(x, dy, fu, fd, kw)
+    other = filtered_lrelu_bands.banded_bwd_plain(x.float(), dy.float(), fu, fd, **kw)
+    check = selftest._against_plain(name, other.bfloat16(), torch.bfloat16, **bars)
+    assert not check.ok and check.over_share > 10 * selftest.K2_OVER_SHARE, check
+    check = selftest._against_plain(name, bars["plain"](slice(None)), torch.bfloat16, **bars)
+    assert check.ok and check.over == 0 and check.beyond_flips_rel_err == 0.0, check
+
+
+def _bwd_with_flips(x, dy, fu, fd, up, down, padding, gain, slope, clamp, near):
+    """`banded_bwd_plain` with act' taken on the other side of its jump at
+    every U within `near` * max|t1| * max|Bu| of 0: the most a summation
+    order could flip."""
+    (au, bu, ad, bd), stage = filtered_lrelu_bands._plain_setup(x, fu, fd, up, down, padding)
+    n, c, h, w = x.shape
+    t1 = stage(au @ x.reshape(n * c, h, w).float())
+    u = t1 @ bu.T
+    near_zero = u.abs() < near * t1.abs().amax((1, 2), keepdim=True) * bu.abs().max()
+    g = torch.where(near_zero, -u, u)
+    g = filtered_lrelu_bands.act_grad(torch.where(g == 0, -1.0, g), gain, slope, clamp)
+    s1 = stage(ad.T @ dy.reshape(n * c, *dy.shape[2:]).float())
+    dt1 = stage(stage((s1 @ bd) * g) @ bu)
+    return (au.T @ dt1).to(x.dtype).reshape(n, c, h, w)
+
+
+@pytest.mark.parametrize("idx", [3, 4, 8, 12])
+def test_act_flip_bound_covers_flips(idx, plan_layers):
+    """With act' flipped at every U the bound admits, dX moves past the
+    tight bar, and the move stays within the flip bound: the error beyond it
+    passes K2_RESIDUAL_TOL (up 4 with a crop at L3, up 2 at the others)."""
+    name, layer = plan_layers[idx]
+    x, dy, fu, fd, kw = _plan_case(layer, idx)
+    flipped = _bwd_with_flips(x, dy, fu, fd, **kw, near=selftest.FLIP_NEAR)
+    check = selftest._against_plain(name, flipped, torch.bfloat16, **_k2_bars(x, dy, fu, fd, kw))
+    assert check.rel_err > selftest.K2_RESIDUAL_TOL, check
+    assert check.beyond_flips_rel_err <= selftest.K2_RESIDUAL_TOL, check
+    assert check.over_in_reach == check.over > 0, check
 
 
 def test_kernel_entry_rejects_cpu_tensor():
@@ -190,7 +312,8 @@ def test_kernel_entry_rejects_cpu_tensor():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cpu_gradient_never_launches(dtype):
     """On a CPU tensor the Function's backward is the plain version: the
-    autograd gradient of the composed op, bias gradient included."""
+    stage-rounded banded products that "fused" computes there too, bias
+    gradient included."""
     x, b = _inputs(dtype)
     x.requires_grad_(True)
     b.requires_grad_(True)
@@ -199,7 +322,7 @@ def test_cpu_gradient_never_launches(dtype):
     y = filtered_lrelu(x, FU, FU, b, impl="packed", **kw)
     dy = torch.randn(y.shape, generator=torch.Generator().manual_seed(2)).to(dtype)
     got = torch.autograd.grad(y, [x, b], dy)
-    want = torch.autograd.grad(filtered_lrelu_composed(x, FU, FU, b, **kw), [x, b], dy)
+    want = torch.autograd.grad(filtered_lrelu(x, FU, FU, b, impl="fused", **kw), [x, b], dy)
     assert filtered_lrelu_cuda.launches == filtered_lrelu_cuda.bwd_launches == 0
     for g, w in zip(got, want):
         assert g.dtype == dtype
@@ -307,6 +430,25 @@ def test_bwd_kernel_matches_plain_f32(idx, cuda_device, plan_layers):
     check = selftest.check_layer(layer, name, TRAIN_FRAMES, torch.float32, cuda_device, gen,
                                  kernel="K2")
     assert check.ok, check
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 3, 12, 16), (1, 2, 13, 17), (1, 1, 70, 33)])
+def test_tensor_core_kernels_at_small_and_odd_sizes(shape, cuda_device):
+    """The bf16 K1 and K2 at maps smaller than a tile and of odd widths (their
+    patches load element by element) against their plain versions."""
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(shape, generator=g).to(cuda_device, torch.bfloat16)
+    kw = dict(up=2, down=2, padding=9, gain=1.41, slope=0.2, clamp=4.0)
+    y = filtered_lrelu_cuda.filtered_lrelu_fwd_cuda(x, FU, FU, **kw)
+    dy = torch.randn(y.shape, generator=g).to(cuda_device, torch.bfloat16)
+    dx = filtered_lrelu_cuda.filtered_lrelu_bwd_cuda(x, dy, FU, FU, **kw)
+    for got, want, tol in ((y, filtered_lrelu_bands.banded_fwd_plain(x, FU, FU, **kw),
+                            selftest.K1_TOL),
+                           (dx, filtered_lrelu_bands.banded_bwd_plain(x, dy, FU, FU, **kw),
+                            selftest.TOLS[torch.bfloat16])):
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= tol * want.float().abs().max().item(), err
 
 
 @pytest.mark.cuda

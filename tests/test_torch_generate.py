@@ -115,6 +115,20 @@ def test_cli_writes_videos_and_frames(checkpoints, tmp_path):
     assert (lres_only.parent / "v-frame0001.png").is_file()
 
 
+def test_cli_needs_cuda_unless_asked_for_cpu(checkpoints, tmp_path, monkeypatch):
+    """`--device` defaults to cuda: with no CUDA device and no `--device`, the
+    CLI raises before it loads or writes anything; `--device cpu` runs."""
+    root = checkpoints[0]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = tmp_path / "nocuda" / "v.mp4"
+    args = ["--lres", str(root / "lres.lvg"), "--output", str(out), "--frames", "2"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(args)
+    assert not out.parent.exists()
+    main(args + ["--device", "cpu"])
+    assert (out.parent / "v-lres.mp4").is_file()
+
+
 def test_port_runs_without_jax_flax_msgpack(checkpoints, tmp_path):
     """The port imports none of jax, flax, msgpack or the JAX package: with
     them unimportable it loads both checkpoints and generates, runs the

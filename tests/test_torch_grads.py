@@ -1,9 +1,10 @@
 """Gradients of the port's ops against the JAX package's, on the CPU.
 
-  * K2's plain version: the gradient of the port's filtered_lrelu Function on
-    a CPU tensor against the VJP of the JAX package's `_packed_op`, its
-    Pallas backward run in interpret mode as tests/test_pallas_packed.py runs
-    it, at that file's geometries; double backward raises in both.
+  * K2's plain version (the stage-rounded banded products): the gradient of
+    the port's filtered_lrelu Function on a CPU tensor against the VJP of the
+    JAX package's `_packed_op`, its Pallas backward run in interpret mode as
+    tests/test_pallas_packed.py runs it, at that file's geometries; double
+    backward raises in both.
   * Forward and gradient of upfirdn2d, bias_act (all 9 activations) and the
     composed filtered_lrelu against `jax.vjp`; second order for upfirdn2d.
 """
@@ -19,7 +20,7 @@ import jax.numpy as jnp
 import torch
 
 from long_video_gan_tpu.ops import filters as jax_filters
-from long_video_gan_tpu_torch.ops import filtered_lrelu_cuda
+from long_video_gan_tpu_torch.ops import filtered_lrelu_bands, filtered_lrelu_cuda
 from long_video_gan_tpu_torch.ops.bias_act import activation_funcs, bias_act
 from long_video_gan_tpu_torch.ops.filtered_lrelu import filtered_lrelu, filtered_lrelu_composed
 from long_video_gan_tpu_torch.ops.upfirdn2d import upfirdn2d
@@ -159,15 +160,21 @@ def test_k2_double_backward_raises_like_jax(jax_packed_interpret):
 
 
 def test_k2_plain_is_autograd_of_composed():
-    """The plain backward on its own equals autograd through the composed op."""
+    """The plain backward on its own is what the Function's backward computes
+    on a CPU tensor, and in f32 (no stage rounding) it is autograd through the
+    composed op, up to f32 summation order (the bar of the f32 gradient
+    comparisons above)."""
     fu, fd, x, _ = _packed_inputs(4, 10, 16, seed=4)
     kw = dict(up=4, down=2, padding=(7, 6, 7, 6), gain=math.sqrt(2.0), slope=0.2, clamp=3.0)
     xt = torch.from_numpy(x).requires_grad_(True)
     y = filtered_lrelu_composed(xt, fu, fd, None, **kw)
     dy = torch.randn(y.shape, generator=torch.Generator().manual_seed(0))
     (want,) = torch.autograd.grad(y, xt, dy)
-    got = filtered_lrelu_cuda.filtered_lrelu_bwd_plain(xt.detach(), dy, fu, fd, **kw)
-    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    got = filtered_lrelu_bands.banded_bwd_plain(xt.detach(), dy, fu, fd, **kw)
+    (via_function,) = torch.autograd.grad(filtered_lrelu(xt, fu, fd, None, impl="packed", **kw),
+                                          xt, dy)
+    torch.testing.assert_close(got, via_function, rtol=0, atol=0)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
 
 
 # ---------------------------------------------------------------------------

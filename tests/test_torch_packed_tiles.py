@@ -1,0 +1,230 @@
+"""K1 and K2, the bf16 filtered_lrelu kernels of `impl="packed"`, on the CPU.
+
+(a) Their plain versions (`filtered_lrelu_bands.banded_fwd_plain` /
+    `banded_bwd_plain`: the four banded products with the TPU kernel's bf16
+    stage rounding) against the JAX package's `_packed_fwd` / `_packed_bwd`,
+    run in Pallas interpret mode, at the L3 (31x38, up 4, a crop) and L4
+    (40x54, up 2) geometries of the 144x256 plan. Bars: f32 1e-5 forward and
+    1e-4 gradient (summation order), bf16 2**-8 of the largest output (both
+    round the same stages and differ only in f32 summation order before a
+    rounding), as in tests/test_torch_fused.py.
+(b) The host-built tile plans of the tensor-core kernels (operator blocks
+    and band K-windows, `fwd_tile_plan` / `bwd_tile_plan`), contracted tile by
+    tile here as csrc/filtered_lrelu_tc.cu contracts them (only the K-blocks
+    of each window, at the kernels' fixed window widths; patches zero outside
+    the map, ragged edge tiles cropped),
+    reproduce the plain versions at every L3-L13 geometry: f32 to 1e-5, bf16
+    to 2**-8 of the largest output.
+"""
+
+import importlib
+import math
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from long_video_gan_tpu_torch import selftest
+from long_video_gan_tpu_torch.ops import filtered_lrelu_bands as bands
+from long_video_gan_tpu_torch.ops import filtered_lrelu_cuda
+from long_video_gan_tpu_torch.ops.filtered_lrelu import filtered_lrelu, output_size
+
+jax_flr = importlib.import_module("long_video_gan_tpu.ops.filtered_lrelu")
+
+BF16_BAR = 2.0 ** -8
+
+
+@pytest.fixture(scope="module")
+def plan_layers():
+    return selftest.plan_layers()
+
+
+@pytest.fixture
+def interpret_pallas(monkeypatch):
+    """The JAX packed kernel in interpret mode on the CPU, as the
+    `jax_packed_interpret` fixture of tests/test_torch_ops.py runs it."""
+    from jax.experimental import pallas as pl
+
+    orig = pl.pallas_call
+
+    def patched(*args, **kwargs):
+        kwargs["interpret"] = True
+        return orig(*args, **kwargs)
+
+    monkeypatch.setattr(pl, "pallas_call", patched)
+    monkeypatch.setattr(jax_flr, "FORCE_FUSED_ON_CPU", True)
+
+
+def _layer_case(layer, planes, seed, scale=1.0):
+    """Seeded numpy input of one plan layer's filtered_lrelu (bias added),
+    its output gradient, its filters and keyword arguments."""
+    rng = np.random.default_rng(seed)
+    h, w = layer.in_size[1] + layer.kernel - 1, layer.in_size[0] + layer.kernel - 1
+    fu, fd = layer.up_filter.numpy(), layer.down_filter.numpy()
+    kw = dict(up=layer.up_factor, down=layer.down_factor, padding=tuple(layer.padding),
+              gain=math.sqrt(2.0), slope=0.2, clamp=layer.conv_clamp)
+    x = (rng.standard_normal((1, planes, h, w)) * scale).astype(np.float32)
+    oh, ow = output_size(h, w, fu, fd, kw["up"], kw["down"], kw["padding"])
+    dy = rng.standard_normal((1, planes, oh, ow)).astype(np.float32)
+    return x, dy, fu, fd, kw
+
+
+def _jax(a, dtype):
+    return jnp.asarray(a, jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32)
+
+
+def _torch(a, dtype):
+    return torch.from_numpy(np.array(jnp.asarray(a, jnp.float32))).to(dtype)
+
+
+def _assert_close(got, want, dtype, f32_tol):
+    want = np.asarray(jnp.asarray(want, jnp.float32))
+    assert got.shape == want.shape
+    tol = f32_tol if dtype == torch.float32 else BF16_BAR * np.abs(want).max()
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=f32_tol, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# (a) The plain versions against the JAX packed kernels.
+
+
+@pytest.mark.parametrize("idx", [3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_plain_matches_jax_packed(idx, dtype, plan_layers, interpret_pallas):
+    x, _, fu, fd, kw = _layer_case(plan_layers[idx][1], 2, seed=idx)
+    want = jax_flr.filtered_lrelu(_jax(x, dtype), fu, fd, None, impl="packed", **kw)
+    filtered_lrelu_cuda.launches = 0
+    got = filtered_lrelu(_torch(x, dtype), fu, fd, None, impl="packed", **kw)
+    assert filtered_lrelu_cuda.launches == 0 and got.dtype == dtype
+    _assert_close(got, want, dtype, 1e-5)
+
+
+@pytest.mark.parametrize("idx", [3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_plain_matches_jax_packed(idx, dtype, plan_layers, interpret_pallas):
+    """With a low clamp, so that a good share of the supersampled values
+    saturate and act' is zero there."""
+    x, dy, fu, fd, kw = _layer_case(plan_layers[idx][1], 1, seed=10 + idx, scale=3.0)
+    kw["clamp"] = 4.0
+    _, pull = jax.vjp(lambda v: jax_flr.filtered_lrelu(v, fu, fd, None, impl="packed", **kw),
+                      _jax(x, dtype))
+    (want,) = pull(_jax(dy, dtype))
+    xt = _torch(x, dtype).requires_grad_(True)
+    filtered_lrelu_cuda.bwd_launches = 0
+    out = filtered_lrelu(xt, fu, fd, None, impl="packed", **kw)
+    (got,) = torch.autograd.grad(out, xt, _torch(dy, dtype))
+    assert filtered_lrelu_cuda.bwd_launches == 0 and got.dtype == dtype
+    _assert_close(got, want, dtype, 1e-4)
+
+
+# ---------------------------------------------------------------------------
+# (b) The tile plans, contracted tile by tile as the kernels contract them.
+
+
+def _patches(x, starts_y, starts_x, size):
+    """[tiles, planes, size, size] patches of x [planes, H, W] at each
+    (start_y, start_x), zero outside the map."""
+    planes, h, w = x.shape
+    pad = size + max(abs(s) for s in (*starts_y, *starts_x))
+    xp = torch.nn.functional.pad(x, (pad, pad, pad, pad))
+    return torch.stack([xp[:, pad + sy:pad + sy + size, pad + sx:pad + sx + size]
+                        for sy in starts_y for sx in starts_x])
+
+
+def _windowed(op, kb, taps, rounded):
+    """The operator block with every entry outside its 16-row blocks'
+    kernel windows (`kb` K-blocks each) dropped: contracting it is
+    contracting only the windows, as the kernels do, and a window that
+    missed a nonzero of the band drops it."""
+    block = rounded(op.values(taps))
+    keep = torch.zeros_like(block, dtype=torch.bool)
+    for m, (k0, k1) in enumerate(op.kernel_windows(kb)):
+        keep[16 * m:16 * m + 16, 16 * k0:16 * k1] = True
+    return torch.where(keep, block, torch.zeros(()))
+
+
+def _lhs(op, kb, b, taps, rounded):
+    """op [M, K] . b [..., K, N], windows per 16-row block of op: an
+    A-operand band (the kernel's t1, s1, out and dX products)."""
+    return _windowed(op, kb, taps, rounded) @ b
+
+
+def _rhs(a, op, kb, taps, rounded):
+    """a [..., M, K] . op^T, op stored [N, K]: a B-operand band (U, t3, dZ,
+    dt1), windows per 16 columns of the result."""
+    return a @ _windowed(op, kb, taps, rounded).T
+
+
+def _untile(tiles, ty, tx, tile, h, w):
+    """[ty*tx, planes, T, T] tiles -> [planes, h, w], the edge tiles cropped."""
+    t = tiles.reshape(ty, tx, tiles.shape[1], tile, tile).permute(2, 0, 3, 1, 4)
+    return t.reshape(tiles.shape[1], ty * tile, tx * tile)[:, :h, :w]
+
+
+def tiled_fwd(x, plan, widths, taps, gain, slope, clamp, out_hw):
+    """K1's contraction: per T x T output tile, t1 = Au . X (patch), U = t1 .
+    Bu^T, Z = act(U), t3 = Z . Bd^T, out = Ad . t3, stages rounded to x's
+    type."""
+    rounded = lambda t: t.to(x.dtype).float()   # noqa: E731
+    (oh, ow), tile = out_hw, plan.tile
+    ty, tx = bands.tile_counts(oh, ow, tile)
+    xp = _patches(x.float(), [t * plan.step + plan.y.base for t in range(ty)],
+                  [t * plan.step + plan.x.base for t in range(tx)], plan.pp)
+    o = {name: (op, widths[name]) for name, op in plan.ops.items()}
+    t1 = rounded(_lhs(*o["au_y"], xp, taps, rounded))
+    z = rounded(bands.act(_rhs(t1, *o["au_x"], taps, rounded), gain, slope, clamp))
+    t3 = rounded(_rhs(z, *o["ad_x"], taps, rounded))
+    return _untile(_lhs(*o["ad_y"], t3, taps, rounded), ty, tx, tile, oh, ow).to(x.dtype)
+
+
+def tiled_bwd(x, dy, plan, widths, taps, gain, slope, clamp):
+    """K2's contraction: per T x T dX tile, t1 = Au . X, s1 = Ad^T . dY,
+    dU = (s1 . Bd) * act'(t1 . Bu^T), dt1 = dU . Bu, dX = Au^T . dt1."""
+    rounded = lambda t: t.to(x.dtype).float()   # noqa: E731
+    (h, w), tile = x.shape[1:], plan.tile
+    ty, tx = bands.tile_counts(h, w, tile)
+    xp = _patches(x.float(), [t * tile + plan.y.x_base for t in range(ty)],
+                  [t * tile + plan.x.x_base for t in range(tx)], plan.px)
+    dp = _patches(dy.float(), [t * plan.dstep + plan.y.d_base for t in range(ty)],
+                  [t * plan.dstep + plan.x.d_base for t in range(tx)], plan.pd)
+    o = {name: (op, widths[name]) for name, op in plan.ops.items()}
+    t1 = rounded(_lhs(*o["au_y"], xp, taps, rounded))
+    s1 = rounded(_lhs(*o["adt_y"], dp, taps, rounded))
+    g = bands.act_grad(_rhs(t1, *o["au_x"], taps, rounded), gain, slope, clamp)
+    du = rounded(_rhs(s1, *o["adt_x"], taps, rounded) * g)
+    dt1 = rounded(_rhs(du, *o["aut_x"], taps, rounded))
+    return _untile(_lhs(*o["aut_y"], dt1, taps, rounded), ty, tx, tile, h, w).to(x.dtype)
+
+
+def _close(got, want, dtype):
+    tol = 1e-5 if dtype == torch.float32 else BF16_BAR
+    scale = want.float().abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    assert got.shape == want.shape and err <= tol * scale, (err, scale)
+
+
+@pytest.mark.parametrize("idx", selftest.KERNEL_LAYERS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tile_plans_contract_to_plain(idx, dtype, plan_layers):
+    """The forward's and the backward's tile plans at each bf16 layer of the
+    plan (L3 and L13 crop their padding; every layer has ragged edge
+    tiles)."""
+    x, dy, fu, fd, kw = _layer_case(plan_layers[idx][1], 1, seed=20 + idx, scale=2.0)
+    x, dy = torch.from_numpy(x).to(dtype), torch.from_numpy(dy).to(dtype)
+    up, down, pad = kw["up"], kw["down"], kw["padding"]
+    taps = filtered_lrelu_cuda.kernel_geometry(x, fu, fd, up, down, pad)[3]
+    geometry = (up, down, pad, len(fu), len(fd), torch.device("cpu"))
+    act_kw = dict(taps=taps, gain=kw["gain"], slope=kw["slope"], clamp=kw["clamp"])
+
+    def plan(backward):
+        """The wrapper's plan and the window widths its kernel walks."""
+        plan, _, _, where = filtered_lrelu_cuda._tc_plan(backward, *geometry)
+        return plan, {name: w[3] for name, w in where.items()}
+
+    want = bands.banded_fwd_plain(x, fu, fd, **kw)[0]
+    _close(tiled_fwd(x[0], *plan(False), out_hw=want.shape[1:], **act_kw), want, dtype)
+    want = bands.banded_bwd_plain(x, dy, fu, fd, **kw)[0]
+    _close(tiled_bwd(x[0], dy[0], *plan(True), **act_kw), want, dtype)

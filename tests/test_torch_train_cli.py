@@ -125,6 +125,19 @@ def test_msgpack_encoder_writes_flax_bytes():
         assert packb(v) == msgpack.packb(v, use_bin_type=True)
 
 
+def test_cli_needs_cuda_unless_asked_for_cpu(run, tmp_path, monkeypatch):
+    """`--device` defaults to cuda: with no CUDA device and no `--device`, the
+    trainer CLI raises before it makes its run directory; the module's run
+    (`--device cpu`) trained."""
+    root, run_dir = run
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--dataset", str(root / "data"), "--preset", "tiny", "--batch", "2",
+              "--outdir", str(tmp_path / "runs")])
+    assert not (tmp_path / "runs").exists()
+    assert json.load(open(os.path.join(run_dir, "config.json")))["device"] == "cpu"
+
+
 def test_trainer_runs_without_jax_flax_msgpack(run):
     """The port's training path (the tiny CLI, the `.lvg` writer and reader)
     imports none of jax, flax or msgpack."""
