@@ -1,12 +1,14 @@
-"""Smoke run of the PyTorch port on one NVIDIA GPU: builds the port's five CUDA
+"""Smoke run of the PyTorch port on one NVIDIA GPU: builds the port's six CUDA
 sources from the checkout (six kernels; K1 and K2 have a bf16 tensor-core
-source and an f32 one), prints the tensor-core kernels' registers, spills and
-HMMA instruction counts, holds each kernel against its plain version at every
-layer geometry its paths give it (K1 forward at generation and training size,
-also against the f32 composed op; K2 backward at training size; K3a forward
-at generation and training size, K3b backward at training size; K4 and K5 at
-generation size), with K1's and K2's executed tensor-core rate, then drives
-each path through the entry points a user calls:
+source and an f32 one, K3a and K3b one tensor-core source for both types),
+prints the tensor-core kernels' registers, spills and HMMA instruction counts
+(K1/K2 and K3a/K3b, each type), holds each kernel against its plain version
+at every layer geometry its paths give it (K1 forward at generation and
+training size, also against the f32 composed op; K2 backward at training
+size; K3a forward at generation and training size, K3b backward at training
+size; K4 and K5 at generation size), with the tensor-core kernels' executed
+rate and per-layer tables of time, bound and share, then drives each path
+through the entry points a user calls:
 
 - full-width two-stage generation through
   `long_video_gan_tpu_torch.generate.generate_video`, with the kernel policy
@@ -19,15 +21,21 @@ each path through the entry points a user calls:
   point `filtered_lrelu_pallas_v2`, at the full-width layers they serve.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --compare PARENT.log   # also the times of another
+                                                 # commit's run in this call
 
-Every phase raises on failure (exit code != 0). On success the line before
-the last is a JSON summary of the kernels, and the last line is
+`--compare` takes the output of another commit's `chip_smoke.py` (run on the
+same card, in the same call) and puts its per-layer kernel times and its
+end-to-end numbers beside this run's. Every phase raises on failure (exit
+code != 0). On success the line before the last is a JSON summary of the
+kernels, and the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints no
 result. Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import re
@@ -45,8 +53,7 @@ SRES_KWARGS = dict(hr_height=144, hr_width=256, lr_height=36, lr_width=64,
 MODEL_TOL = 0.05       # relative max-abs, kernel path vs plain (scripts/tpu_selftest.py)
 TRAIN_BATCH = 32       # train_sres.py full preset
 GRAD_ACCUM = 2         # the smallest that fits in 80 GB (1 runs out of memory)
-TRAIN_STEPS = 3        # G on "auto"
-FUSED_TRAIN_STEPS = 2  # G on "fused"
+TRAIN_STEPS = 4        # per path; step 0 (R1 and ADA) is left out of the warm time
 GRAD_TOL = 0.05        # relative max-abs of G's parameter gradients, kernel path vs conv
 GRAD_CLIPS = 4         # gradient check micro-batch: the plain path at 16 clips runs out of 80 GB
 EXACT_LAYERS = (0, 4, 6, 8, 9, 11, 12, 14)   # K4/K5: one layer of each geometry they serve
@@ -93,7 +100,11 @@ def read_counts() -> dict:
     return {name: getattr(module, attr) for name, (module, attr) in counters().items()}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--compare", metavar="LOG",
+                    help="another commit's chip_smoke.py output from this call, to compare")
+    args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -134,7 +145,7 @@ def main() -> int:
                "K4": filtered_lrelu_exact.SOURCE, "K5": filtered_lrelu_polyphase.SOURCE}
     libraries = (filtered_lrelu_cuda.tc_library, filtered_lrelu_cuda.library,
                  filtered_lrelu_cuda.bwd_library, filtered_lrelu_fused.library,
-                 filtered_lrelu_polyphase.library)
+                 filtered_lrelu_exact.library, filtered_lrelu_polyphase.library)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libraries)) as pool:
         for future in [pool.submit(lib) for lib in libraries]:
@@ -223,7 +234,7 @@ def main() -> int:
     lr_video = synthesize_lres(lres_G, lr_len, batch_size=1, generator=run_gen, device=device)
     torch.cuda.synchronize()
     print(f"lres {lr_len} frames 36x64: {time.perf_counter() - t0:.3f} s")
-    time_sres("auto", sres_G, lr_video, run_gen)
+    end_to_end = {"auto frames/s": time_sres("auto", sres_G, lr_video, run_gen)}
 
     # 6. Model-level check: one full-width segment, kernel policy vs plain.
     phase("model check: one sres segment, resample_impl auto vs conv")
@@ -249,7 +260,7 @@ def main() -> int:
     n_fused = len(selftest.served_layers("K3a", layers))
     launches["generate_fused"] = generate_phase(lres_G, fused_G, run_gen, device,
                                                 {"K3a": n_fused * n_seg})
-    time_sres("fused", fused_G, lr_video, run_gen)
+    end_to_end["fused frames/s"] = time_sres("fused", fused_G, lr_video, run_gen)
     with torch.inference_mode(), selftest.tf32_off():
         fused_err = rel_err(fused_G(window, z=z), want)
     print(f"fused segment rel_err vs conv {fused_err:.3e} (tol {MODEL_TOL})")
@@ -262,7 +273,7 @@ def main() -> int:
     # a G micro-batch's parameter gradients against the plain path.
     n_layers = len(selftest.KERNEL_LAYERS)
     accum_G, accum_D = c["gan_kwargs"]["G_grad_accum"], c["gan_kwargs"]["D_grad_accum"]
-    gan, batches, train_gen, launches["train"] = train_phase(
+    gan, batches, train_gen, launches["train"], end_to_end["auto s/step"] = train_phase(
         c, device, "auto", TRAIN_STEPS, checked, train_frames,
         {"K1": TRAIN_STEPS * n_layers * (accum_G + accum_D),
          "K2": TRAIN_STEPS * n_layers * accum_G})
@@ -291,10 +302,10 @@ def main() -> int:
     # passes, K3b in the G phase's backward.
     fc = {**c, "gan_kwargs": {**c["gan_kwargs"], "G_kwargs": {
         **c["gan_kwargs"]["G_kwargs"], "resample_impl": "fused"}}}
-    gan, batches, train_gen, launches["train_fused"] = train_phase(
-        fc, device, "fused", FUSED_TRAIN_STEPS, checked, train_frames,
-        {"K3a": FUSED_TRAIN_STEPS * n_fused * (accum_G + accum_D),
-         "K3b": FUSED_TRAIN_STEPS * n_fused * accum_G})
+    gan, batches, train_gen, launches["train_fused"], end_to_end["fused s/step"] = train_phase(
+        fc, device, "fused", TRAIN_STEPS, checked, train_frames,
+        {"K3a": TRAIN_STEPS * n_fused * (accum_G + accum_D),
+         "K3b": TRAIN_STEPS * n_fused * accum_G})
     grad_phase(gan, fc, device, batches, train_gen, "fused", {"K3b": n_fused})
     del gan, batches
     torch.cuda.empty_cache()
@@ -338,6 +349,12 @@ def main() -> int:
     for entry in entries:
         if not entry["launches"]:
             raise RuntimeError(f"{entry['name']} was launched no time on its paths")
+    phase("per-layer kernel times" + (f" beside {args.compare}" if args.compare else ""))
+    parent = {}
+    if args.compare:
+        with open(args.compare) as f:
+            parent = parse_log(f.read())
+    layer_tables(checked, parent, end_to_end)
     print(f"whole script {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -376,14 +393,20 @@ def check_kernel(layers, frames: int, device, gen, kernel: str, f32_extra=()):
         if c.ulp_share is not None:
             timing += (f" off by > 1 ulp {c.ulp_share:.2e} of the elements "
                        f"(tol {selftest.K1_ULP_SHARE:g})")
-        if c.over is not None:
+        if c.flips is not None:
+            timing += (f" beyond witnessed act' flips {c.beyond_flips_rel_err:.2e} "
+                       f"(tol {c.flip_tol:g}), flips {c.flips} of {c.near_zero} U near 0, "
+                       f"off by > {c.flip_tol:g} {c.over} of {c.elements}, {c.over_in_reach} "
+                       f"of them where a witnessed flip reaches")
+        elif c.over is not None:
             timing += (f" beyond act' flips {c.beyond_flips_rel_err:.2e} "
-                       f"(tol {selftest.K2_RESIDUAL_TOL:g}), off by > {selftest.K2_RESIDUAL_TOL:g}"
+                       f"(tol {c.flip_tol:g}), off by > {c.flip_tol:g}"
                        f" {c.over} of {c.elements} ({c.over_share:.2e}, tol "
                        f"{selftest.K2_OVER_SHARE:g}), {c.over_in_reach} of them within reach "
-                       f"of a U near 0 (all elements: {c.reach_share:.1%})")
-        if c.ms is not None and kernel in ("K1", "K2"):
-            flops = selftest.executed_flops(by_name[c.name], frames, kernel)
+                       f"of a U near 0 (all elements: {c.reach_share:.3%})")
+        if c.ms is not None and kernel in TENSOR_CORE_KERNELS:
+            flops = selftest.executed_flops(by_name[c.name], frames, kernel,
+                                            getattr(torch, c.dtype))
             timing += f" executed {flops / c.ms / 1e9:.1f} TFLOP/s"
         print(f"{kernel} {c.name:<16} {c.dtype:<8} out {c.shape} rel_err {c.rel_err:.2e} "
               f"(tol {c.tol:g}){timing} {'ok' if c.ok else 'FAIL'}")
@@ -400,33 +423,101 @@ def check_kernel(layers, frames: int, device, gen, kernel: str, f32_extra=()):
     return checks, ms, plain_ms, bound_ms, bound_by
 
 
+# The tensor-core kernels: (library source, kernel name) -> the kernel it runs.
+TENSOR_CORE_KERNELS = {"K1": ("filtered_lrelu_tc.cu", "filtered_lrelu_fwd_tc_kernel"),
+                       "K2": ("filtered_lrelu_tc.cu", "filtered_lrelu_bwd_tc_kernel"),
+                       "K3a": ("filtered_lrelu_fused_tc.cu", "filtered_lrelu_fused_fwd_tc_kernel"),
+                       "K3b": ("filtered_lrelu_fused_tc.cu", "filtered_lrelu_fused_bwd_tc_kernel")}
+
+
 def tensor_core_report() -> None:
-    """The bf16 K1/K2 kernels' registers and spills (ptxas, kept beside the
-    library) and HMMA instruction counts (cuobjdump -sass of the library);
-    raises unless both use the tensor cores and spill nothing."""
+    """The tensor-core kernels' registers and spills (ptxas, kept beside the
+    library) and HMMA instruction counts (cuobjdump -sass of the library), for
+    each instantiation (K3a/K3b: bf16 and f32 maps); raises unless each uses
+    the tensor cores and spills nothing."""
     from pathlib import Path
 
     from long_video_gan_tpu_torch.utils.nvcc import build_library, find_nvcc
 
-    lib = build_library("filtered_lrelu_tc.cu")
-    log = lib.with_suffix(".log").read_text()
-    sass = subprocess.run([str(Path(find_nvcc()).parent / "cuobjdump"), "-sass", str(lib)],
-                          capture_output=True, text=True, check=True).stdout
-    functions = {}
-    for chunk in sass.split("Function : ")[1:]:
-        functions[chunk.split()[0]] = chunk.count("HMMA")
-    for kernel, which in (("filtered_lrelu_fwd_tc_kernel", "K1"),
-                          ("filtered_lrelu_bwd_tc_kernel", "K2")):
-        entry = log.split(kernel)
-        regs = re.search(r"Used (\d+) registers", entry[-1]) if len(entry) > 1 else None
-        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry[-1]
-                           ) if len(entry) > 1 else None
-        hmma = sum(n for name, n in functions.items() if kernel in name)
-        print(f"{which} tensor-core kernel {kernel}: {regs.group(1) if regs else '?'} registers, "
-              f"spill stores/loads {spills.groups() if spills else '?'} bytes, HMMA "
-              f"instructions {hmma}")
-        if not hmma or not spills or spills.groups() != ("0", "0"):
-            raise RuntimeError(f"{which}'s kernel has no HMMA instruction or spills registers")
+    cuobjdump = str(Path(find_nvcc()).parent / "cuobjdump")
+    for source in sorted({src for src, _ in TENSOR_CORE_KERNELS.values()}):
+        lib = build_library(source)
+        # ptxas: "Compiling entry function '<mangled>'", then its usage lines.
+        usage = {}
+        for chunk in lib.with_suffix(".log").read_text().split("Compiling entry function '")[1:]:
+            name = chunk.split("'")[0]
+            regs = re.search(r"Used (\d+) registers", chunk)
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
+            usage[name] = (regs.group(1) if regs else "?", spills.groups() if spills else None)
+        sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                              check=True).stdout
+        hmma = {chunk.split()[0]: chunk.count("HMMA")
+                for chunk in sass.split("Function : ")[1:]}
+        for which, (src, kernel) in TENSOR_CORE_KERNELS.items():
+            if src != source:
+                continue
+            names = sorted(n for n in usage if re.search(rf"\d{kernel}[IE]", n))
+            if not names:
+                raise RuntimeError(f"{which}'s kernel {kernel} is not in {lib.name}")
+            for name in names:
+                regs, spills = usage[name]
+                count = hmma.get(name, 0)
+                kind = ("f32 maps" if re.search(rf"{kernel}IfE", name) else "bf16 maps"
+                        ) if which in ("K3a", "K3b") else "bf16 maps"
+                print(f"{which} tensor-core kernel {kernel} ({kind}): {regs} registers, "
+                      f"spill stores/loads {spills or '?'} bytes, HMMA instructions {count}")
+                if not count or spills != ("0", "0"):
+                    raise RuntimeError(f"{which}'s kernel ({kind}) has no HMMA instruction or "
+                                       f"spills registers")
+
+
+def parse_log(text: str) -> dict:
+    """Another chip_smoke.py run's output: {(kernel, layer, dtype, frames):
+    ms} of its timed checks, and {"<label> frames/s" | "<label> s/step": x}
+    of its end-to-end lines."""
+    out, label = {}, None
+    for line in text.splitlines():
+        m = re.match(r"(K\w+) (L\d+)_\S+\s+(\w+)\s+out \((\d+),.* kernel ([\d.]+) ms", line)
+        if m:
+            out[m.group(1), m.group(2), m.group(3), int(m.group(4))] = float(m.group(5))
+        m = re.match(r"sres \((\w+)\) .*: ([\d.]+) frames/s", line)
+        if m:
+            out[f"{m.group(1)} frames/s"] = float(m.group(2))
+        m = re.match(r"== train_sres full preset, G (\w+):", line)
+        if m:
+            label = m.group(1)
+        m = re.search(r"warm sec/step \(steps [\d-]+\) ([\d.]+)", line)
+        if m and label:
+            out[f"{label} s/step"] = float(m.group(1))
+    return out
+
+
+def layer_tables(checked: dict, parent: dict, end_to_end: dict) -> None:
+    """Per kernel and frame count, each timed layer's ms beside the compared
+    run's (`parent`, from `parse_log`; "-" without one), the bound and its
+    share, and the sums; then the end-to-end numbers of both."""
+    label = "compared" if parent else "compared (none: no --compare)"
+    for kernel, by_frames in checked.items():
+        for frames, (checks, *_) in sorted(by_frames.items()):
+            timed = [c for c in checks if c.ms is not None]
+            print(f"-- {kernel}, {frames} frames: layer, dtype, this run ms, {label} ms, "
+                  f"ratio, bound ms (by), share of bound")
+            sums = [0.0, 0.0]
+            for c in timed:
+                layer = c.name.split("_")[0]
+                old = parent.get((kernel, layer, c.dtype, frames))
+                sums[0] += c.ms
+                sums[1] += old or 0.0
+                ratio = f"{old / c.ms:.2f}x" if old else "-"
+                print(f"{kernel} {frames:>3} fr {layer:<4} {c.dtype:<8} {c.ms:9.3f} "
+                      f"{old if old else '-':>9} {ratio:>7} {c.bound_ms:8.3f} ({c.bound_by}) "
+                      f"{c.bound_ms / c.ms:7.2%}")
+            ratio = f"{sums[1] / sums[0]:.2f}x" if sums[1] else "-"
+            print(f"{kernel} {frames:>3} fr sum  {len(timed)} layers {sums[0]:9.3f} "
+                  f"{f'{sums[1]:.3f}' if sums[1] else '-':>9} {ratio:>7}")
+    for key, value in end_to_end.items():
+        old = parent.get(key)
+        print(f"end to end {key}: this run {value:.3f}, {label} {old if old else '-'}")
 
 
 def generate_phase(lres_G, sres_G, run_gen, device, expected: dict) -> dict:
@@ -457,9 +548,9 @@ def generate_phase(lres_G, sres_G, run_gen, device, expected: dict) -> dict:
     return counts
 
 
-def time_sres(label: str, sres_G, lr_video, run_gen) -> None:
+def time_sres(label: str, sres_G, lr_video, run_gen) -> float:
     """sres frames/s over FRAMES frames, median of 3 (host clock; the
-    segments' `.cpu()` synchronises)."""
+    segments' `.cpu()` synchronises); prints and returns it."""
     from long_video_gan_tpu_torch.generate import super_resolve
 
     runs = []
@@ -472,6 +563,7 @@ def time_sres(label: str, sres_G, lr_video, run_gen) -> None:
     print(f"sres ({label}) {FRAMES} frames 144x256 (batch 1, segment {SEGMENT}, context "
           f"{CONTEXT}): {FRAMES / sorted(runs)[1]:.2f} frames/s "
           f"(median of 3: {', '.join(f'{s:.3f}' for s in runs)} s)")
+    return FRAMES / sorted(runs)[1]
 
 
 def train_phase(c: dict, device, label: str, steps: int, checked: dict, train_frames: int,
@@ -480,7 +572,8 @@ def train_phase(c: dict, device, label: str, steps: int, checked: dict, train_fr
     the card, with the counts reset just before; raises unless losses are
     finite, G, D and G_ema change, the kernels launched exactly `expected`
     times (others none) and only at the shapes checked at `train_frames`.
-    Returns (the trainer, its batches, its generator, the counts)."""
+    Returns (the trainer, its batches, its generator, the counts, the warm
+    seconds per step)."""
     import torch
 
     from long_video_gan_tpu_torch.train.stats import Collector
@@ -547,9 +640,9 @@ def train_phase(c: dict, device, label: str, steps: int, checked: dict, train_fr
     losses = {k: collector.mean(k) for k in ("loss/G_loss", "loss/D_loss", "loss/r1_loss",
                                              "loss/r1_penalty", "progress/augment_p")}
     print("losses " + ", ".join(f"{k} {v:.5g}" for k, v in losses.items()))
+    warm = sum(step_s[1:]) / (steps - 1)
     print(f"step seconds {', '.join(f'{s:.3f}' for s in step_s)} (step 0 runs R1 and ADA); "
-          f"warm sec/step (steps 1-{steps - 1}) {sum(step_s[1:]) / (steps - 1):.3f}; "
-          f"peak memory {peak_gib:.2f} GiB")
+          f"warm sec/step (steps 1-{steps - 1}) {warm:.3f}; peak memory {peak_gib:.2f} GiB")
     print(f"launches {counts} (expected {expected})")
     if not all(math.isfinite(v) for v in losses.values()):
         raise RuntimeError(f"non-finite training statistics: {losses}")
@@ -568,7 +661,7 @@ def train_phase(c: dict, device, label: str, steps: int, checked: dict, train_fr
         if all(torch.equal(snapshot[name][k], state[k]) for k in params):
             raise RuntimeError(f"training left {name} unchanged")
     print("G, D and G_ema changed")
-    return gan, batches, train_gen, counts
+    return gan, batches, train_gen, counts, warm
 
 
 def grad_phase(gan, c: dict, device, batches, train_gen, label: str, expected: dict) -> None:

@@ -1,5 +1,6 @@
-// Helpers shared by the filtered_lrelu kernels of filtered_lrelu_fused.cu
-// and filtered_lrelu_polyphase.cu: type conversion,
+// Helpers shared by the filtered_lrelu kernels of filtered_lrelu_exact.cu
+// and filtered_lrelu_polyphase.cu (and, for the error string, of
+// filtered_lrelu_tc.cuh): type conversion,
 // index arithmetic, patch loads, the launch and the error string of their
 // plain C interface. Every kernel takes per axis
 //   up pass:    u[r] = sum_k fu[k] * z[r + k - pad0],  z[i*up] = x[i], else 0;

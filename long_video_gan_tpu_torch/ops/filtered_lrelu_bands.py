@@ -65,6 +65,26 @@ def _plain_setup(x: torch.Tensor, fu: Filter, fd: Filter, up: int, down: int, pa
     return ops, lambda t: t.to(x.dtype).float()
 
 
+def bf16_parts(t: torch.Tensor, parts: int) -> list:
+    """`parts` bf16 tensors whose sum is f32 `t` (to 2**-24 of it for 3
+    parts): each the rounding of what the ones before it leave. One part is
+    t's bf16 rounding; three (hi, mid, lo) hold its f32 value, as the
+    tensor-core kernels hold f32 operands (csrc/filtered_lrelu_tc.cuh)."""
+    out = []
+    for _ in range(parts):
+        out.append(t.to(torch.bfloat16))
+        t = t - out[-1].float()
+    return out
+
+
+def split_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the f32 tensor-core kernels compute it: both in three bf16
+    parts, the six partial products above 2**-24 summed in f32, hi . hi
+    apart from the other five."""
+    (ah, am, al), (bh, bm, bl) = ([p.float() for p in bf16_parts(t, 3)] for t in (a, b))
+    return ah @ bh + (am @ bm + ah @ bl + al @ bh + ah @ bm + am @ bh)
+
+
 def act(u: torch.Tensor, gain: float, slope: float, clamp: Optional[float]) -> torch.Tensor:
     z = torch.where(u >= 0, u, u * slope) * gain
     return z if clamp is None else z.clamp(-clamp, clamp)
@@ -123,6 +143,52 @@ def act_flip_bound(x: torch.Tensor, dy: torch.Tensor, fu: Filter, fd: Filter, up
     dz = (stage(ad.T @ dy.reshape(n * c, *dy.shape[2:]).float()) @ bd).abs()
     dz = torch.where(u.abs() < delta, dz, 0.0)
     return (abs(1.0 - slope) * gain * (au.abs().T @ dz @ bu.abs())).reshape(n, c, h, w)
+
+
+def act_flip_witness(x: torch.Tensor, dy: torch.Tensor, err: torch.Tensor, fu: Filter,
+                     fd: Filter, up: int, down: int, padding, gain: float, slope: float,
+                     clamp: Optional[float]) -> tuple[torch.Tensor, int, int]:
+    """For f32 maps: the part of `err`, another computation's dX minus
+    `banded_bwd_plain`'s at bias-added `x` along `dy`, that act' taking the
+    other side of its jump at single U elements explains, with the flips and
+    the U near 0 counted: (explained, flips, near).
+
+    A U is near 0 where |U| (in f64) is within f32 rounding of 0:
+    (n + m + 8) * 2**-24 * (|Au| . |X| . |Bu|^T), n and m the nonzeros of a
+    row of Au and Bu (f32 sums of that many products, and three-part bf16
+    operands, stages and dropped partial products). Only there can two f32
+    summation orders disagree on sign(U). The flip at such a U moves dX by
+    D = (g' - g) * dZ * Au[i]^T (x) Bu[j], g = act'(U) as the plain version
+    takes it, g' the other side; it counts as a flip, and D is explained,
+    where projecting `err` on D gives more than half of D. What is left,
+    err - explained, is the error beyond witnessed flips."""
+    (au, bu, ad, bd), stage = _plain_setup(x, fu, fd, up, down, padding)
+    n, c, h, w = x.shape
+    x32 = x.reshape(n * c, h, w).float()
+    u = stage(au @ x32) @ bu.T                      # the plain version's U
+    au64, bu64, ad64, bd64 = (m.double() for m in (au, bu, ad, bd))
+    x64 = x32.double()
+    u64 = au64 @ x64 @ bu64.T
+    rows = lambda m: int((m != 0).sum(1).max())    # noqa: E731
+    scale = au64.abs() @ x64.abs() @ bu64.abs().T
+    near = u64.abs() <= (rows(au) + rows(bu) + 8) * 2.0 ** -24 * scale
+    p, i, j = near.nonzero(as_tuple=True)
+    explained = torch.zeros_like(err, dtype=torch.float64).reshape(n * c, h, w)
+    if p.numel() == 0:
+        return explained.reshape(err.shape), 0, 0
+    dz = (ad64.T @ dy.reshape(n * c, *dy.shape[2:]).double() @ bd64)[p, i, j]
+    # g' - g at each near U, act'(U) taken as the plain version takes it
+    side = (u[p, i, j] >= 0).double()
+    dg = (1.0 - 2.0 * side) * (1.0 - slope) * gain
+    a, b = au64[i], bu64[j]                         # [K, h], [K, w]
+    e = err.reshape(n * c, h, w).double()[p]
+    along = torch.einsum("kh,khw,kw->k", a, e, b)   # <err, Au[i]^T (x) Bu[j]>
+    amp = dg * dz                                   # D = amp * Au[i]^T (x) Bu[j]
+    norm2 = a.square().sum(1) * b.square().sum(1)
+    flip = along * amp > 0.5 * amp.square() * norm2   # <err, D> > <D, D> / 2
+    move = amp[flip, None, None] * a[flip, :, None] * b[flip, None, :]
+    explained.index_add_(0, p[flip], move)
+    return explained.reshape(err.shape), int(flip.sum()), int(p.numel())
 
 
 # ---------------------------------------------------------------------------

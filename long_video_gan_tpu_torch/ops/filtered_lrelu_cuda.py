@@ -69,14 +69,21 @@ def bwd_library() -> ctypes.CDLL:
     return load_library("filtered_lrelu_bwd.cu", {"lvg_filtered_lrelu_bwd_f32": args})
 
 
+# Arguments of the tensor-core kernels' C functions (csrc/filtered_lrelu_tc.cuh
+# `launch_fwd_tc`, `launch_bwd_tc`): x, y, ops, windows, params and their
+# count, gain, slope, clamp, stream; the backward x, dy, dx, ops, windows,
+# params and count, gain, slope, clamp, has_clamp, stream.
+_TC_PARAMS = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+TC_FWD_ARGS = [ctypes.c_void_p] * 4 + _TC_PARAMS + [ctypes.c_float] * 3 + [ctypes.c_void_p]
+TC_BWD_ARGS = ([ctypes.c_void_p] * 5 + _TC_PARAMS + [ctypes.c_float] * 3
+               + [ctypes.c_int, ctypes.c_void_p])
+
+
 @functools.lru_cache(maxsize=None)
 def tc_library() -> ctypes.CDLL:
     """Build (at first use) and load the bf16 tensor-core kernels' library."""
-    params = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
-    return load_library("filtered_lrelu_tc.cu", {
-        "lvg_tc_fwd": [ctypes.c_void_p] * 4 + params + [ctypes.c_float] * 3 + [ctypes.c_void_p],
-        "lvg_tc_bwd": ([ctypes.c_void_p] * 5 + params + [ctypes.c_float] * 3
-                       + [ctypes.c_int, ctypes.c_void_p])})
+    return load_library("filtered_lrelu_tc.cu", {"lvg_tc_fwd": TC_FWD_ARGS,
+                                                 "lvg_tc_bwd": TC_BWD_ARGS})
 
 
 def filtered_lrelu_packed(x: torch.Tensor, fu: Filter = None, fd: Filter = None,
@@ -174,11 +181,11 @@ def raise_on_error(lib: ctypes.CDLL, rc: int, which: str) -> None:
 
 @functools.lru_cache(maxsize=256)
 def _tc_plan(backward: bool, up: int, down: int, padding: tuple, nfu: int, nfd: int,
-             device: torch.device):
-    """A layer's tile plan, its operators' tap indices and K-windows on
-    `device`, and {operator: (offset, ld, first window)}."""
+             device: torch.device, tile: int = TILE):
+    """A layer's tile plan for `tile`-wide tiles, its operators' tap indices
+    and K-windows on `device`, and {operator: (offset, ld, first window)}."""
     make = bands.bwd_tile_plan if backward else bands.fwd_tile_plan
-    plan = make(TILE, up, down, padding, nfu, nfd)
+    plan = make(tile, up, down, padding, nfu, nfd)
     widths = {name: op.kb for name, op in plan.ops.items()}
     if backward:   # U and dZ run side by side over one window width
         widths["au_x"] = widths["adt_x"] = max(widths["au_x"], widths["adt_x"])
@@ -196,14 +203,83 @@ def _c_ints(values: list) -> tuple:
     return (ctypes.c_int * len(values))(*values), len(values)
 
 
-def _tc_ops(index: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
-    """The operator blocks in bf16 on the card, gathered from the taps there
-    (no read-back to the host)."""
-    return torch.cat([taps, taps.new_zeros(1)])[index].to(torch.bfloat16)
+def _tc_ops(index: torch.Tensor, taps: torch.Tensor, parts: int) -> torch.Tensor:
+    """The operator blocks on the card, gathered from the f32 taps there (no
+    read-back to the host), as `parts` bf16 parts one after another
+    (`filtered_lrelu_bands.bf16_parts`): 1 for bf16 maps, 3 for f32."""
+    values = torch.cat([taps, taps.new_zeros(1)])[index]
+    return torch.cat(bands.bf16_parts(values, parts))
 
 
 def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def tc_parts(x: torch.Tensor) -> int:
+    """bf16 parts per operand of a tensor-core kernel on `x`'s type: 1 for
+    bf16 maps, 3 for f32 maps (csrc/filtered_lrelu_tc.cuh)."""
+    return 1 if x.dtype == torch.bfloat16 else 3
+
+
+def tc_params(backward: bool, plan, index: torch.Tensor, windows: torch.Tensor, where: dict,
+              sizes: tuple, aligned: tuple) -> list:
+    """The host ints of a tensor-core launch (FwdParams' or BwdParams' order,
+    csrc/filtered_lrelu_tc.cuh): `sizes` = (planes, in_h, in_w, out_h,
+    out_w), `aligned` the patch-load flags (x; backward: x, dy)."""
+    if backward:
+        params = [*sizes, plan.tile, plan.rp, plan.px, plan.pd, plan.dstep, plan.y.x_base,
+                  plan.x.x_base, plan.y.d_base, plan.x.d_base, *aligned]
+    else:
+        params = [*sizes, plan.tile, plan.rp, plan.pp, plan.step, plan.y.base, plan.x.base,
+                  *aligned]
+    params += [v for name in (BWD_OPS if backward else FWD_OPS) for v in where[name]]
+    return params + [index.numel(), windows.numel()]
+
+
+def launch_tc_fwd(fn, x: torch.Tensor, y: torch.Tensor, up: int, down: int, geometry,
+                  gain: float, slope: float, clamp: Optional[float], tile: int = TILE) -> int:
+    """Launch the tensor-core forward C function `fn` (K1, K3a) on bias-added
+    `x` into `y` over `tile`-wide tiles, given `kernel_geometry`'s (padding,
+    out_h, out_w, taps, fu taps, fd taps); returns its cudaError_t."""
+    pad, out_h, out_w, taps, n_fu, n_fd = geometry
+    n, c, h, w = x.shape
+    plan, index, windows, where = _tc_plan(False, up, down, pad, n_fu, n_fd, x.device, tile)
+    ops = _tc_ops(index, taps, tc_parts(x))
+    params = tc_params(False, plan, index, windows, where, (n * c, h, w, out_h, out_w),
+                       (_aligned(x, w, plan.step),))
+    return fn(x.data_ptr(), y.data_ptr(), ops.data_ptr(), windows.data_ptr(), *_c_ints(params),
+              float(gain), float(slope), math.inf if clamp is None else float(clamp),
+              _stream(x))
+
+
+def launch_tc_bwd(fn, x: torch.Tensor, dy: torch.Tensor, dx: torch.Tensor, up: int, down: int,
+                  geometry, gain: float, slope: float, clamp: Optional[float],
+                  tile: int = TILE) -> int:
+    """Launch the tensor-core backward C function `fn` (K2, K3b) over
+    `tile`-wide dX tiles: dx at bias-added `x` along `dy`; returns its
+    cudaError_t."""
+    pad, out_h, out_w, taps, n_fu, n_fd = geometry
+    n, c, h, w = x.shape
+    plan, index, windows, where = _tc_plan(True, up, down, pad, n_fu, n_fd, x.device, tile)
+    ops = _tc_ops(index, taps, tc_parts(x))
+    params = tc_params(True, plan, index, windows, where, (n * c, h, w, out_h, out_w),
+                       (_aligned(x, w, tile), _aligned(dy, out_w, plan.dstep)))
+    return fn(x.data_ptr(), dy.data_ptr(), dx.data_ptr(), ops.data_ptr(), windows.data_ptr(),
+              *_c_ints(params), float(gain), float(slope),
+              math.inf if clamp is None else float(clamp), 0 if clamp is None else 1,
+              _stream(x))
+
+
+def check_gradient(x: torch.Tensor, dy: torch.Tensor, out_hw: tuple, which: str) -> None:
+    """Raise unless `dy` is a contiguous NCHW gradient of x's type and device
+    and of the output's shape."""
+    check_input(dy, "gradient")
+    if dy.dtype != x.dtype or dy.device != x.device:
+        raise TypeError(f"filtered_lrelu {which}: dy ({dy.dtype}, {dy.device}) must match "
+                        f"x ({x.dtype}, {x.device})")
+    want = tuple(x.shape[:2]) + tuple(out_hw)
+    if tuple(dy.shape) != want:
+        raise ValueError(f"filtered_lrelu {which}: dy shape {tuple(dy.shape)}, expected {want}")
 
 
 def filtered_lrelu_fwd_cuda(x: torch.Tensor, fu: Filter, fd: Filter, up: int, down: int,
@@ -213,27 +289,20 @@ def filtered_lrelu_fwd_cuda(x: torch.Tensor, fu: Filter, fd: Filter, up: int, do
     device); returns a new tensor of the same dtype."""
     global launches
     check_input(x, "tensor")
-    pad, out_h, out_w, taps, n_fu, n_fd = kernel_geometry(x, fu, fd, up, down, padding)
+    geometry = kernel_geometry(x, fu, fd, up, down, padding)
+    pad, out_h, out_w, taps, n_fu, n_fd = geometry
     n, c, h, w = x.shape
     y = torch.empty((n, c, out_h, out_w), dtype=x.dtype, device=x.device)
-    clamp_value = math.inf if clamp is None else float(clamp)
     with torch.cuda.device(x.device):
         if x.dtype == torch.bfloat16:
-            plan, index, windows, where = _tc_plan(False, up, down, pad, n_fu, n_fd, x.device)
-            ops = _tc_ops(index, taps)
-            params = [n * c, h, w, out_h, out_w, TILE, plan.rp, plan.pp, plan.step,
-                      plan.y.base, plan.x.base, _aligned(x, w, plan.step)]
-            params += [v for name in FWD_OPS for v in where[name]]
-            params += [ops.numel(), windows.numel()]
             lib = tc_library()
-            rc = lib.lvg_tc_fwd(x.data_ptr(), y.data_ptr(), ops.data_ptr(), windows.data_ptr(),
-                                *_c_ints(params), float(gain), float(slope), clamp_value,
-                                _stream(x))
+            rc = launch_tc_fwd(lib.lvg_tc_fwd, x, y, up, down, geometry, gain, slope, clamp)
         else:
             lib = library()
             rc = lib.lvg_filtered_lrelu_fwd_f32(
                 x.data_ptr(), y.data_ptr(), n * c, h, w, out_h, out_w, up, down, *pad,
-                taps.data_ptr(), n_fu, n_fd, float(gain), float(slope), clamp_value, _stream(x))
+                taps.data_ptr(), n_fu, n_fd, float(gain), float(slope),
+                math.inf if clamp is None else float(clamp), _stream(x))
     raise_on_error(lib, rc, "forward")
     launches += 1
     return y
@@ -246,36 +315,23 @@ def filtered_lrelu_bwd_cuda(x: torch.Tensor, dy: torch.Tensor, fu: Filter, fd: F
     dtype, contiguous, on one CUDA device); returns dx of x's dtype."""
     global bwd_launches
     check_input(x, "input")
-    check_input(dy, "gradient")
-    if dy.dtype != x.dtype or dy.device != x.device:
-        raise TypeError(f"filtered_lrelu backward: dy ({dy.dtype}, {dy.device}) must match "
-                        f"x ({x.dtype}, {x.device})")
-    pad, out_h, out_w, taps, n_fu, n_fd = kernel_geometry(x, fu, fd, up, down, padding)
+    geometry = kernel_geometry(x, fu, fd, up, down, padding)
+    pad, out_h, out_w, taps, n_fu, n_fd = geometry
+    check_gradient(x, dy, (out_h, out_w), "backward")
     n, c, h, w = x.shape
-    if tuple(dy.shape) != (n, c, out_h, out_w):
-        raise ValueError(f"filtered_lrelu backward: dy shape {tuple(dy.shape)}, expected "
-                         f"{(n, c, out_h, out_w)}")
     dx = torch.empty_like(x)
-    clamp_args = (math.inf if clamp is None else float(clamp), 0 if clamp is None else 1)
     with torch.cuda.device(x.device):
         if x.dtype == torch.bfloat16:
-            plan, index, windows, where = _tc_plan(True, up, down, pad, n_fu, n_fd, x.device)
-            ops = _tc_ops(index, taps)
-            params = [n * c, h, w, out_h, out_w, TILE, plan.rp, plan.px, plan.pd,
-                      plan.dstep, plan.y.x_base, plan.x.x_base, plan.y.d_base, plan.x.d_base,
-                      _aligned(x, w, TILE), _aligned(dy, out_w, plan.dstep)]
-            params += [v for name in BWD_OPS for v in where[name]]
-            params += [ops.numel(), windows.numel()]
             lib = tc_library()
-            rc = lib.lvg_tc_bwd(x.data_ptr(), dy.data_ptr(), dx.data_ptr(), ops.data_ptr(),
-                                windows.data_ptr(), *_c_ints(params), float(gain),
-                                float(slope), *clamp_args, _stream(x))
+            rc = launch_tc_bwd(lib.lvg_tc_bwd, x, dy, dx, up, down, geometry, gain, slope,
+                               clamp)
         else:
             lib = bwd_library()
             rc = lib.lvg_filtered_lrelu_bwd_f32(
                 x.data_ptr(), dy.data_ptr(), dx.data_ptr(), n * c, h, w, out_h, out_w, up,
                 down, *pad, taps.data_ptr(), n_fu, n_fd, float(gain), float(slope),
-                *clamp_args, _stream(x))
+                math.inf if clamp is None else float(clamp), 0 if clamp is None else 1,
+                _stream(x))
     raise_on_error(lib, rc, "backward")
     bwd_launches += 1
     return dx

@@ -1,6 +1,7 @@
 """The f32-exact filtered_lrelu forward: the Hopper kernel K4 of
-csrc/filtered_lrelu_fused.cu (K3a's forward with every stage kept in f32),
-reached through `filtered_lrelu(impl="pallas")`.
+csrc/filtered_lrelu_exact.cu (the four banded products with every stage kept
+in f32, in FMAs on the CUDA cores), reached through
+`filtered_lrelu(impl="pallas")`.
 
 Counterpart of `long_video_gan_tpu/ops/pallas/filtered_lrelu_kernel.py`
 `filtered_lrelu_pallas`: the maps cast to f32, every product and sum in f32,
@@ -17,18 +18,30 @@ CUDA-specific is built until the first launch.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from typing import Optional
 
 import torch
 
+from ..utils.nvcc import load_library
 from .filtered_lrelu import filtered_lrelu_composed
-from .filtered_lrelu_cuda import check_input, kernel_geometry, raise_on_error
-from .filtered_lrelu_fused import SOURCE, library
+from .filtered_lrelu_cuda import GEOMETRY_ARGS, check_input, kernel_geometry, raise_on_error
 from .upfirdn2d import Filter, parse_padding
+
+SOURCE = "long_video_gan_tpu_torch/csrc/filtered_lrelu_exact.cu"
 
 # Kernel launches since the last reset (the caller sets it to 0).
 launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """Build (at first use) and load K4."""
+    args = [ctypes.c_void_p] * 2 + GEOMETRY_ARGS + [ctypes.c_void_p]
+    return load_library("filtered_lrelu_exact.cu", {"lvg_exact_fwd_f32": args,
+                                                    "lvg_exact_fwd_bf16": args})
 
 
 def check_limits(entry: str, fu: Filter, fd: Filter, up: int, padding) -> None:

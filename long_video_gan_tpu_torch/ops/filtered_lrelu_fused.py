@@ -1,5 +1,5 @@
 """filtered_lrelu as four banded operator products: the Hopper kernels K3a
-(forward) and K3b (gradient) of csrc/filtered_lrelu_fused.cu, joined by a
+(forward) and K3b (gradient) of csrc/filtered_lrelu_fused_tc.cu, joined by a
 `torch.autograd.Function`.
 
 Counterpart of `long_video_gan_tpu/ops/pallas/filtered_lrelu_fused.py`
@@ -10,12 +10,16 @@ Counterpart of `long_video_gan_tpu/ops/pallas/filtered_lrelu_fused.py`
 
 with the banded per-axis operators of `filtered_lrelu_bands.operators`. The
 function is these products in this order, with the TPU kernel's stores
-between them: for bf16
-maps the operators, t1 = Au . X, Z = act(U) and t3 = Z . Bd^T (backward: t1,
-Ad^T . dY, dU and dU . Bu) round to bf16, and every sum is f32; f32 maps stay
-in f32 throughout. The Function saves the bias-added input and recomputes U in
-the backward. The backward is first-order only: it is a Function of its own
-whose backward raises, as `_first_order_only` makes the JAX VJP.
+between them: for bf16 maps the operators, t1 = Au . X, Z = act(U) and
+t3 = Z . Bd^T (backward: t1, Ad^T . dY, dU and dU . Bu) round to bf16, and
+every sum is f32; f32 maps stay in f32 throughout (the TPU kernel's
+Precision.HIGHEST). Both run on the tensor cores over K1/K2's tile plans
+(`filtered_lrelu_cuda.launch_tc_fwd`, `launch_tc_bwd`): bf16 maps on K1/K2's
+kernel bodies, f32 maps with every operand in three bf16 parts
+(`filtered_lrelu_bands.split_matmul`). The Function saves the bias-added
+input and recomputes U in the backward. The backward is first-order only: it
+is a Function of its own whose backward raises, as `_first_order_only` makes
+the JAX VJP.
 
 A CUDA tensor launches the kernels or raises; a CPU tensor takes the plain
 versions, `banded_fwd_plain` and `banded_bwd_plain` (`filtered_lrelu_bands.py`,
@@ -33,11 +37,13 @@ from typing import Optional
 import torch
 
 from ..utils.nvcc import load_library
+from . import filtered_lrelu_cuda as cuda
 from .filtered_lrelu_bands import banded_bwd_plain, banded_fwd_plain
-from .filtered_lrelu_cuda import GEOMETRY_ARGS, check_input, kernel_geometry, raise_on_error
+from .filtered_lrelu_cuda import (TC_BWD_ARGS, TC_FWD_ARGS, check_gradient, check_input,
+                                  kernel_geometry, launch_tc_bwd, launch_tc_fwd, raise_on_error)
 from .upfirdn2d import Filter, parse_padding
 
-SOURCE = "long_video_gan_tpu_torch/csrc/filtered_lrelu_fused.cu"
+SOURCE = "long_video_gan_tpu_torch/csrc/filtered_lrelu_fused_tc.cu"
 
 # Kernel launches since the last reset (the caller sets them to 0).
 fwd_launches = 0
@@ -46,15 +52,18 @@ bwd_launches = 0
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """Build (at first use) and load K3a and K3b, and K4
-    (`filtered_lrelu_exact.py`), whose forward is K3a's with no stage
-    rounding."""
-    fwd = [ctypes.c_void_p] * 2 + GEOMETRY_ARGS + [ctypes.c_void_p]
-    bwd = [ctypes.c_void_p] * 3 + GEOMETRY_ARGS + [ctypes.c_int, ctypes.c_void_p]
-    return load_library("filtered_lrelu_fused.cu", {
-        "lvg_fused_fwd_f32": fwd, "lvg_fused_fwd_bf16": fwd,
-        "lvg_fused_bwd_f32": bwd, "lvg_fused_bwd_bf16": bwd,
-        "lvg_exact_fwd_f32": fwd, "lvg_exact_fwd_bf16": fwd})
+    """Build (at first use) and load K3a and K3b."""
+    return load_library("filtered_lrelu_fused_tc.cu", {
+        "lvg_fused_tc_fwd_bf16": TC_FWD_ARGS, "lvg_fused_tc_fwd_f32": TC_FWD_ARGS,
+        "lvg_fused_tc_bwd_bf16": TC_BWD_ARGS, "lvg_fused_tc_bwd_f32": TC_BWD_ARGS})
+
+
+def tile_for(backward: bool, dtype: torch.dtype, up: int) -> int:
+    """The tile edge of a K3 launch: K1/K2's `TILE`, but half of it for the
+    f32 backward at up 4, whose three-part stages need more than a block's
+    227 KB of shared memory at 32 (tests/test_torch_packed_tiles.py holds
+    every plan geometry's footprint to that)."""
+    return cuda.TILE // 2 if backward and dtype == torch.float32 and up == 4 else cuda.TILE
 
 
 def filtered_lrelu_fused(x: torch.Tensor, fu: Filter = None, fd: Filter = None,
@@ -106,15 +115,8 @@ class _FusedFilteredLReLUGrad(torch.autograd.Function):
 # The kernels.
 
 
-def _launch_args(x: torch.Tensor, fu: Filter, fd: Filter, up: int, down: int, padding):
-    """Output size and the C arguments of a launch on `x`: the taps (rounded
-    to bf16 for bf16 maps, as the TPU kernel's operators are) and geometry."""
-    (px0, px1, py0, py1), out_h, out_w, taps, n_fu, n_fd = kernel_geometry(x, fu, fd, up, down,
-                                                                            padding)
-    taps = taps.to(x.dtype).float().contiguous()
-    n, c, h, w = x.shape
-    return (out_h, out_w), taps, [n * c, h, w, out_h, out_w, up, down, px0, px1, py0, py1,
-                                  taps.data_ptr(), n_fu, n_fd]
+def _suffix(x: torch.Tensor) -> str:
+    return "bf16" if x.dtype == torch.bfloat16 else "f32"
 
 
 def fused_fwd_cuda(x: torch.Tensor, fu: Filter, fd: Filter, up: int, down: int, padding,
@@ -123,14 +125,12 @@ def fused_fwd_cuda(x: torch.Tensor, fu: Filter, fd: Filter, up: int, down: int, 
     device); returns a new tensor of the same dtype."""
     global fwd_launches
     check_input(x, "tensor")
-    (out_h, out_w), taps, geometry = _launch_args(x, fu, fd, up, down, padding)
-    y = torch.empty((x.shape[0], x.shape[1], out_h, out_w), dtype=x.dtype, device=x.device)
+    geometry = kernel_geometry(x, fu, fd, up, down, padding)
+    y = torch.empty(tuple(x.shape[:2]) + geometry[1:3], dtype=x.dtype, device=x.device)
     lib = library()
-    fn = lib.lvg_fused_fwd_bf16 if x.dtype == torch.bfloat16 else lib.lvg_fused_fwd_f32
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), y.data_ptr(), *geometry, float(gain), float(slope),
-                math.inf if clamp is None else float(clamp), stream)
+        rc = launch_tc_fwd(getattr(lib, f"lvg_fused_tc_fwd_{_suffix(x)}"), x, y, up, down,
+                           geometry, gain, slope, clamp, tile_for(False, x.dtype, up))
     raise_on_error(lib, rc, "fused forward")
     fwd_launches += 1
     return y
@@ -143,22 +143,13 @@ def fused_bwd_cuda(x: torch.Tensor, dy: torch.Tensor, fu: Filter, fd: Filter, up
     contiguous, on one CUDA device); returns dX of x's dtype."""
     global bwd_launches
     check_input(x, "input")
-    check_input(dy, "gradient")
-    if dy.dtype != x.dtype or dy.device != x.device:
-        raise TypeError(f"filtered_lrelu fused backward: dy ({dy.dtype}, {dy.device}) must "
-                        f"match x ({x.dtype}, {x.device})")
-    (out_h, out_w), taps, geometry = _launch_args(x, fu, fd, up, down, padding)
-    if tuple(dy.shape) != (x.shape[0], x.shape[1], out_h, out_w):
-        raise ValueError(f"filtered_lrelu fused backward: dy shape {tuple(dy.shape)}, "
-                         f"expected {(x.shape[0], x.shape[1], out_h, out_w)}")
+    geometry = kernel_geometry(x, fu, fd, up, down, padding)
+    check_gradient(x, dy, geometry[1:3], "fused backward")
     dx = torch.empty_like(x)
     lib = library()
-    fn = lib.lvg_fused_bwd_bf16 if x.dtype == torch.bfloat16 else lib.lvg_fused_bwd_f32
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), dy.data_ptr(), dx.data_ptr(), *geometry, float(gain),
-                float(slope), math.inf if clamp is None else float(clamp),
-                0 if clamp is None else 1, stream)
+        rc = launch_tc_bwd(getattr(lib, f"lvg_fused_tc_bwd_{_suffix(x)}"), x, dy, dx, up, down,
+                           geometry, gain, slope, clamp, tile_for(True, x.dtype, up))
     raise_on_error(lib, rc, "fused backward")
     bwd_launches += 1
     return dx

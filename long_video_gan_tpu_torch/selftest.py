@@ -30,38 +30,43 @@ from .ops.upfirdn2d import axis_nonzeros, parse_padding
 
 # Max-abs error relative to max|reference|. bf16: a few bf16 ulps, since the
 # input and output round to bf16 and the kernel sums in f32 (the bar of
-# scripts/tpu_selftest.py); f32: summation order only. K4's f32 bar is the
-# JAX kernel's own claim of f32 exactness (2e-7 against the f32 oracle).
+# scripts/tpu_selftest.py); f32: summation order only. EXACT_F32_TOL, K4's
+# and K3a's f32 bar, is the JAX kernels' own claim of f32 exactness (2e-7
+# against the f32 oracle): K3a's three-part bf16 products meet it, and a
+# single bf16 or TF32 pass does not, nor K3b's f32 bars below
+# (tests/test_torch_packed_tiles.py).
 TOLS = {torch.bfloat16: 0.03, torch.float32: 1e-4}
 EXACT_F32_TOL = 1e-6
-# K3a in bf16: half a bf16 ulp of the output's scale. Kernel and plain version
-# round the same stages to bf16 and differ only where f32 summation order
-# flips a rounding (the H100 showed no difference at any plan layer). A K3a
-# that kept its stages in f32 lands 3.9e-3 to 1.0e-2 away at the bf16 plan
-# layers and fails it (tests/test_torch_filtered_lrelu_cuda.py). K3b keeps
-# the generic bar: it reads 2.7e-3 to 5.1e-3 there on the H100.
-STAGE_ROUNDED_TOL = 2.0 ** -9
-# K1 in bf16: max-abs within one bf16 ulp of the output's scale. It rounds the
-# same stages as its plain version, but sums each band in tensor-core order,
-# so a rounding flips now and then and carries through the later stages. That
-# bar alone would pass the products with f32 stages (or the W pass first), so
-# besides, at most K1_ULP_SHARE of the elements may lie more than one bf16 ulp
-# of their own from the plain version. The H100 reads about 1e-6 at the plan's
-# bf16 layers; f32 stages put a hundred times the bar there
-# (tests/test_torch_filtered_lrelu_cuda.py).
+# K1 and K3a in bf16: max-abs within one bf16 ulp of the output's scale. They
+# round the same stages as their plain version, but sum each band in
+# tensor-core order, so a rounding flips now and then and carries through the
+# later stages. That bar alone would pass the products with f32 stages (or
+# the W pass first), so besides, at most K1_ULP_SHARE of the elements may lie
+# more than one bf16 ulp of their own from the plain version. The H100 reads
+# about 1e-6 at the plan's bf16 layers; f32 stages put a hundred times the
+# bar there (tests/test_torch_filtered_lrelu_cuda.py).
 K1_TOL = 2.0 ** -7
 K1_ULP_SHARE = 1e-4
-# K2 in bf16: act' jumps at U = 0, so where another summation order puts a U
-# near 0 on the other side, dX moves by up to a few hundredths of its scale
-# (the bar of TOLS). Held besides: the error beyond the most such flips can
-# move each element (`filtered_lrelu_bands.act_flip_bound` over the U within
-# FLIP_NEAR) within one bf16 ulp of the scale, and at most K2_OVER_SHARE of
-# the elements more than one bf16 ulp of the scale off (the H100 reads at
-# most 2e-8, every such element within reach of a U near 0; f32 stages put
-# fifty times the bar or more there).
+# K2 and K3b in bf16: act' jumps at U = 0, so where another summation order
+# puts a U near 0 on the other side, dX moves by up to a few hundredths of its
+# scale (the bar of TOLS). Held besides: the error beyond the most such flips
+# can move each element (`filtered_lrelu_bands.act_flip_bound` over the U
+# within FLIP_NEAR) within one bf16 ulp of the scale, and at most
+# K2_OVER_SHARE of the elements more than one bf16 ulp of the scale off (the
+# H100 reads at most 2e-8, every such element within reach of a U near 0;
+# f32 stages put fifty times the bar or more there).
 FLIP_NEAR = 2.0 ** -7
 K2_RESIDUAL_TOL = 2.0 ** -7
 K2_OVER_SHARE = 1e-5
+# K3b in f32: the same jump. Its tensor-core products sum in another order
+# than the plain version's f32 matmuls, so a U within f32 rounding of 0 can
+# take the other side of it, and dX moves there by up to a few hundredths of
+# its scale (the H100 read up to 1.5e-2 at L0-L1 over 64 frames, at 24 and 40
+# of their 3.9e7 elements). So K3b in f32 is held to TOLS[f32] at every
+# element after the moves of witnessed flips are taken out: a flip counts
+# only at a U that f64 puts within f32 rounding of 0, and only where the
+# error has that flip's own shape and sign
+# (`filtered_lrelu_bands.act_flip_witness`).
 
 # The bf16 layers of the 144x256 plan that launch K1/K2 (L14, ToRGB, is an
 # identity resample and takes the composed path).
@@ -74,6 +79,9 @@ REF_FRAMES = 16
 # The card's published dense peaks (NVIDIA H100 SXM data sheet, 700 W, no
 # sparsity): bf16 products on the tensor cores, f32 outside them, and HBM.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# f32 maps on the tensor cores as K3a/K3b take them: six bf16 passes per
+# product, so a sixth of the bf16 peak.
+SPLIT_F32_FLOPS = PEAK_FLOPS[torch.bfloat16] / 6
 PEAK_BYTES_PER_S = 3.35e12
 
 
@@ -93,11 +101,21 @@ class Kernel:
     f32_tol: float = TOLS[torch.float32]
     bf16_tol: float = TOLS[torch.bfloat16]
     f32_arithmetic: bool = False
-    bf16_ulp_share: Optional[float] = None   # K1_ULP_SHARE's bar in bf16
-    bf16_flip_bars: bool = False             # K2's bars beyond act' flips in bf16
+    bf16_ulp_share: Optional[float] = None   # K1_ULP_SHARE's bar in bf16 (K1, K3a)
+    bf16_flip_bars: bool = False             # K2's bars beyond act' flips in bf16 (K2, K3b)
+    f32_flip_witness: bool = False           # f32 bar beyond witnessed act' flips (K3b)
+    split_f32: bool = False                  # f32 maps as three-part bf16 products (K3a, K3b)
 
     def tol(self, dtype: torch.dtype) -> float:
         return self.f32_tol if dtype == torch.float32 else self.bf16_tol
+
+    def peak_flops(self, dtype: torch.dtype) -> float:
+        """The card's peak for this kernel's products on maps of `dtype`."""
+        if self.f32_arithmetic:
+            return PEAK_FLOPS[torch.float32]
+        if dtype == torch.float32 and self.split_f32:
+            return SPLIT_F32_FLOPS
+        return PEAK_FLOPS[dtype]
 
     def run(self, *args, **kw) -> torch.Tensor:
         """The kernel on a CUDA tensor, its plain version on a CPU tensor, as
@@ -116,9 +134,10 @@ KERNELS = {k.name: k for k in (
     Kernel("K2", True, filtered_lrelu_cuda.filtered_lrelu_bwd_cuda, _bands.banded_bwd_plain,
            f32_reference=False, bf16_flip_bars=True),
     Kernel("K3a", False, filtered_lrelu_fused.fused_fwd_cuda, _bands.banded_fwd_plain,
-           f32_reference=False, bf16_tol=STAGE_ROUNDED_TOL),
+           f32_reference=False, f32_tol=EXACT_F32_TOL, bf16_tol=K1_TOL,
+           bf16_ulp_share=K1_ULP_SHARE, split_f32=True),
     Kernel("K3b", True, filtered_lrelu_fused.fused_bwd_cuda, _bands.banded_bwd_plain,
-           f32_reference=False),
+           f32_reference=False, bf16_flip_bars=True, f32_flip_witness=True, split_f32=True),
     Kernel("K4", False, filtered_lrelu_exact.exact_fwd_cuda, filtered_lrelu_exact.exact_plain,
            f32_tol=EXACT_F32_TOL, f32_arithmetic=True),
     Kernel("K5", False, filtered_lrelu_polyphase.polyphase_fwd_cuda,
@@ -175,15 +194,19 @@ class LayerCheck:
     bound_by: Optional[str] = None
     composed_rel_err: Optional[float] = None   # against the f32 composed op
     ulp_share: Optional[float] = None   # elements more than one bf16 ulp of their own off
-    # K2's readings beyond act' flips: the largest error beyond the flip bound
-    # (relative), the elements more than K2_RESIDUAL_TOL of the scale off, how
-    # many of those a flip can reach, the share of all elements a flip can
-    # reach, and the elements checked.
+    # The readings beyond act' flips (K2, K3b): the bar beyond them, the
+    # largest error beyond the flip bound (relative), the elements more than
+    # that bar of the scale off, how many of those a flip can reach, the share
+    # of all elements a flip can reach, and the elements checked.
+    flip_tol: Optional[float] = None
     beyond_flips_rel_err: Optional[float] = None
     over: Optional[int] = None
     over_in_reach: Optional[int] = None
     reach_share: Optional[float] = None
     elements: Optional[int] = None
+    # K3b in f32 (`act_flip_witness`): the witnessed flips and the U near 0.
+    flips: Optional[int] = None
+    near_zero: Optional[int] = None
 
     @property
     def over_share(self) -> float:
@@ -228,19 +251,25 @@ def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
 
 
 def _against_plain(name: str, out: torch.Tensor, dtype: torch.dtype, plain, tol: float,
-                   ulp_share_tol: Optional[float] = None, flip_bound=None) -> LayerCheck:
+                   ulp_share_tol: Optional[float] = None, flip_bound=None,
+                   flip_tol: float = K2_RESIDUAL_TOL, witness=None) -> LayerCheck:
     """`out` (the kernel's, launched once at full size) against `plain(s)`,
     the plain version (TF32 off) of the frames in slice `s`, computed
     REF_FRAMES frames at a time so that its memory stays bounded at training
     size; error and scale are the maxima over the slices. `ulp_share_tol`:
     also bars the share of elements more than one bf16 ulp of their own off.
     `flip_bound(s)`: the act' flip bound of slice s; then K2's bars beyond it
-    apply too (K2_RESIDUAL_TOL, K2_OVER_SHARE), with `out`'s own scale as the
-    scale of the elements counted off."""
+    apply too (`flip_tol`, K2_OVER_SHARE), with `out`'s own scale as the
+    scale of the elements counted off. `witness(s, err)`: (explained, flips,
+    near) of `act_flip_witness` on slice s's signed error; then `tol` bars
+    the error beyond the witnessed flips at every element, in place of the
+    error itself, and the elements more than `tol` of the scale off are
+    counted beside those a witnessed flip reaches."""
     err = scale = beyond = 0.0
     ref_frames, ref_rest = 0, None
-    n_ulp = n_over = n_over_reach = n_reach = 0
-    over_at = None if flip_bound is None else K2_RESIDUAL_TOL * out.abs().max().float().item()
+    n_ulp = n_over = n_over_reach = n_reach = n_flips = n_near = 0
+    flips_tol = tol if witness is not None else flip_tol
+    over_at = flips_tol * out.abs().max().float().item()
     with tf32_off():
         for s in _slices(out.shape[0]):
             ref = plain(s).float()
@@ -252,14 +281,24 @@ def _against_plain(name: str, out: torch.Tensor, dtype: torch.dtype, plain, tol:
                 scale = max(scale, ref.abs().max().item())
                 if ulp_share_tol is not None:
                     n_ulp += int((d > bf16_ulp(ref)).sum())
-                if flip_bound is not None:
+                if witness is not None:
+                    signed = out[s].double() - ref.double()
+                    explained, flips, near = witness(s, signed)
+                    beyond = max(beyond, (signed - explained).abs().max().item())
+                    reach = explained != 0
+                    n_flips, n_near = n_flips + flips, n_near + near
+                    del signed, explained
+                elif flip_bound is not None:
                     e = flip_bound(s)
                     beyond = max(beyond, (d - e).max().item())
+                    reach = e > 0
+                    del e
+                if witness is not None or flip_bound is not None:
                     over = d > over_at
                     n_over += int(over.sum())
-                    n_over_reach += int((over & (e > 0)).sum())
-                    n_reach += int((e > 0).sum())
-                    del e, over
+                    n_over_reach += int((over & reach).sum())
+                    n_reach += int(reach.sum())
+                    del reach, over
                 del d
             else:
                 err = math.inf
@@ -268,16 +307,19 @@ def _against_plain(name: str, out: torch.Tensor, dtype: torch.dtype, plain, tol:
     check = LayerCheck(name=name, shape=tuple(out.shape), dtype=str(dtype).split(".")[-1],
                        max_abs_err=err, rel_err=err / scale, tol=tol,
                        ok=tuple(out.shape) == (ref_frames,) + ref_rest and out.dtype == dtype
-                       and err <= tol * scale)
+                       and (witness is not None or err <= tol * scale))
     if ulp_share_tol is not None:
         check.ulp_share = n_ulp / out.numel()
         check.ok = check.ok and check.ulp_share <= ulp_share_tol
-    if flip_bound is not None:
-        check.beyond_flips_rel_err = beyond / scale
+    if witness is not None or flip_bound is not None:
+        check.flip_tol, check.beyond_flips_rel_err = flips_tol, beyond / scale
         check.over, check.over_in_reach, check.elements = n_over, n_over_reach, out.numel()
         check.reach_share = n_reach / out.numel()
-        check.ok = (check.ok and check.beyond_flips_rel_err <= K2_RESIDUAL_TOL
-                    and check.over_share <= K2_OVER_SHARE)
+        check.ok = check.ok and check.beyond_flips_rel_err <= flips_tol
+        if witness is not None:
+            check.flips, check.near_zero = n_flips, n_near
+        else:
+            check.ok = check.ok and check.over_share <= K2_OVER_SHARE
     return check
 
 
@@ -301,7 +343,8 @@ def _layer_inputs(layer: SynthesisLayer, frames: int, dtype: torch.dtype,
 
 
 def bound(layer: SynthesisLayer, frames: int, dtype: torch.dtype, backward: bool,
-          op_dtype: Optional[torch.dtype] = None) -> tuple[float, str]:
+          op_dtype: Optional[torch.dtype] = None,
+          peak_flops: Optional[float] = None) -> tuple[float, str]:
     """(ms, "operations" or "bytes"): the least time the card could take for
     one layer's filtered_lrelu (backward: its input gradient) on `frames` x
     out_channels planes of type `dtype`. Operations: the tap-exact
@@ -309,8 +352,9 @@ def bound(layer: SynthesisLayer, frames: int, dtype: torch.dtype, backward: bool
     nonzeros of each banded operator times the length of the other axis; six
     passes and U recomputed for the backward), two each, at the peak for
     `op_dtype`, the type of the products' operands (default `dtype`: bf16
-    maps and taps make bf16 products summed in f32, the tensor cores' work);
-    the activation's few operations per supersampled value are left out.
+    maps and taps make bf16 products summed in f32, the tensor cores' work),
+    or at `peak_flops` where given (`Kernel.peak_flops`); the activation's few
+    operations per supersampled value are left out.
     Bytes: each input read once, the output written once, at the HBM peak."""
     h = layer.in_size[1] + layer.kernel - 1
     w = layer.in_size[0] + layer.kernel - 1
@@ -329,28 +373,35 @@ def bound(layer: SynthesisLayer, frames: int, dtype: torch.dtype, backward: bool
     planes = frames * layer.out_channels
     item = torch.finfo(dtype).bits // 8
     maps = h * w + ho * wo + (h * w if backward else 0)
-    ops_ms = 2 * macs * planes / PEAK_FLOPS[op_dtype or dtype] * 1e3
+    ops_ms = 2 * macs * planes / (peak_flops or PEAK_FLOPS[op_dtype or dtype]) * 1e3
     bytes_ms = maps * item * planes / PEAK_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def executed_flops(layer: SynthesisLayer, frames: int, kernel: str) -> float:
-    """Operations the bf16 tensor-core K1 (forward) or K2 (gradient) executes
-    on one layer: two per multiply-add of every visited 16-wide K-block
-    (`filtered_lrelu_bands.fwd_executed_macs`), band zeros included."""
+def executed_flops(layer: SynthesisLayer, frames: int, kernel: str,
+                   dtype: torch.dtype = torch.bfloat16) -> float:
+    """Operations the tensor-core K1/K3a (forward) or K2/K3b (gradient)
+    executes on one layer in `dtype`, at the tile its wrapper takes: two per
+    multiply-add of every visited 16-wide K-block
+    (`filtered_lrelu_bands.fwd_executed_macs`), band zeros included, six times
+    over for f32 maps (the six partial products of their three-part
+    operands)."""
     bands, cuda = filtered_lrelu_bands, filtered_lrelu_cuda
     h = layer.in_size[1] + layer.kernel - 1
     w = layer.in_size[0] + layer.kernel - 1
     up, down, pad = layer.up_factor, layer.down_factor, parse_padding(layer.padding)
-    backward = kernel == "K2"
-    plan, _, _, where = cuda._tc_plan(backward, up, down, pad, layer.up_filter.shape[0],
-                                      layer.down_filter.shape[0], torch.device("cpu"))
+    backward = KERNELS[kernel].backward
+    taps = (up, down, pad, layer.up_filter.shape[0], layer.down_filter.shape[0])
+    passes = 1 if dtype == torch.bfloat16 else 6
+    tile = cuda.TILE if kernel in ("K1", "K2") else filtered_lrelu_fused.tile_for(
+        backward, dtype, up)
+    plan, _, _, where = cuda._tc_plan(backward, *taps, torch.device("cpu"), tile)
     widths = {name: ref[3] for name, ref in where.items()}
     hw = (h, w) if backward else output_size(h, w, layer.up_filter, layer.down_filter, up,
                                              down, pad)
-    ty, tx = bands.tile_counts(*hw, cuda.TILE)
+    ty, tx = bands.tile_counts(*hw, tile)
     count = bands.bwd_executed_macs if backward else bands.fwd_executed_macs
-    return 2.0 * count(plan, widths, ty * tx * frames * layer.out_channels)
+    return 2.0 * passes * count(plan, widths, ty * tx * frames * layer.out_channels)
 
 
 def check_layer(layer: SynthesisLayer, name: str, frames: int, dtype: torch.dtype,
@@ -362,9 +413,10 @@ def check_layer(layer: SynthesisLayer, name: str, frames: int, dtype: torch.dtyp
     version (mean of 3, REF_FRAMES frames at a time) in `dtype` with CUDA
     events, and gives the layer's bound. `vs_composed` (a forward): also
     holds the output to the f32 composed op on the input cast to f32, at the
-    bf16 bar, the cost of the stage rounding. In bf16, K1 is also held to
-    K1_ULP_SHARE and K2 to its bars beyond act' flips. A CPU tensor runs the
-    plain version against itself."""
+    bf16 bar, the cost of the stage rounding. In bf16, K1 and K3a are also
+    held to K1_ULP_SHARE, K2 and K3b to K2's bars beyond act' flips; K3b is
+    held in f32 to TOLS[f32] beyond witnessed act' flips. A CPU tensor runs
+    the plain version against itself."""
     k = KERNELS[kernel]
     x, fu, fd, kw = _layer_inputs(layer, frames, dtype, device, generator)
     args = (x,)
@@ -376,16 +428,18 @@ def check_layer(layer: SynthesisLayer, name: str, frames: int, dtype: torch.dtyp
 
     ref = (lambda a: a.float()) if k.f32_reference else (lambda a: a)
     bf16 = dtype == torch.bfloat16
-    flip_bound = None
+    bars = {}
     if bf16 and k.bf16_flip_bars:
-        def flip_bound(s):
-            return filtered_lrelu_bands.act_flip_bound(*(a[s] for a in args), fu, fd, **kw,
-                                                       near=FLIP_NEAR)
+        bars["flip_bound"] = lambda s: filtered_lrelu_bands.act_flip_bound(
+            *(a[s] for a in args), fu, fd, **kw, near=FLIP_NEAR)
+    if not bf16 and k.f32_flip_witness:
+        bars["witness"] = lambda s, err: filtered_lrelu_bands.act_flip_witness(
+            *(a[s] for a in args), err, fu, fd, **kw)
     with torch.no_grad():
         out = k.run(*args, fu, fd, **kw)
         check = _against_plain(name, out, dtype, lambda s: k.plain(
             *(ref(a[s]) for a in args), fu, fd, **kw), k.tol(dtype),
-            k.bf16_ulp_share if bf16 else None, flip_bound)
+            k.bf16_ulp_share if bf16 else None, **bars)
         if vs_composed:
             composed = _against_plain(name, out, dtype, lambda s: _composed(
                 x[s].float(), fu, fd, **kw), TOLS[torch.bfloat16])
@@ -395,7 +449,7 @@ def check_layer(layer: SynthesisLayer, name: str, frames: int, dtype: torch.dtyp
             check.ms = _time_ms(lambda: k.run(*args, fu, fd, **kw))
             check.plain_ms = _time_ms(lambda: [k.plain(*(a[s] for a in args), fu, fd, **kw)
                                                for s in _slices(frames)], iters=3)
-            check.bound_ms, check.bound_by = bound(
-                layer, frames, dtype, k.backward, torch.float32 if k.f32_arithmetic else dtype)
+            check.bound_ms, check.bound_by = bound(layer, frames, dtype, k.backward,
+                                                   peak_flops=k.peak_flops(dtype))
     return check
 

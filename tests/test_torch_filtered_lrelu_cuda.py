@@ -140,26 +140,30 @@ def test_new_entries_on_cpu_take_plain(entry, dtype):
 @pytest.mark.parametrize("kernel", list(selftest.KERNELS))
 def test_selftest_checks_every_kernel_on_cpu(kernel):
     """selftest's check of each kernel runs its plain version against itself
-    on a CPU tensor: an exact agreement, at the kernel's own bar."""
+    on a CPU tensor: an exact agreement, at the kernel's own bar (K3b's f32
+    bar holds beyond witnessed act' flips, of which there are none here)."""
     layer = SynthesisLayer(**LAYER_KW, resample_impl="auto")
     check = selftest.check_layer(layer, "small", 3, torch.float32, torch.device("cpu"),
                                  torch.Generator().manual_seed(4), kernel=kernel)
     assert check.ok and check.max_abs_err == 0.0, check
-    assert check.tol == (1e-6 if kernel == "K4" else 1e-4)
-    bf16_tol = {"K1": 2 ** -7, "K3a": 2 ** -9}.get(kernel, 0.03)
+    assert check.tol == {"K3a": 1e-6, "K4": 1e-6}.get(kernel, 1e-4)
+    if kernel == "K3b":
+        assert check.flips == 0 and check.beyond_flips_rel_err == 0.0, check
+    bf16_tol = {"K1": 2 ** -7, "K3a": 2 ** -7}.get(kernel, 0.03)
     assert selftest.KERNELS[kernel].tol(torch.bfloat16) == bf16_tol
 
 
-@pytest.mark.parametrize("kernel", ["K1", "K2"])
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3a", "K3b"])
 def test_selftest_bf16_bars_on_cpu(kernel):
-    """In bf16 the selftest holds K1 to its share of elements off by more than
-    one ulp and K2 to its bars beyond act' flips; plain against plain on a
-    CPU tensor reads zero on each and reports the share a flip can reach."""
+    """In bf16 the selftest holds K1 and K3a to the share of elements off by
+    more than one ulp, K2 and K3b to K2's bars beyond act' flips; plain
+    against plain on a CPU tensor reads zero on each and reports the share a
+    flip can reach."""
     layer = SynthesisLayer(**LAYER_KW, resample_impl="auto")
     check = selftest.check_layer(layer, "small", 3, torch.bfloat16, torch.device("cpu"),
                                  torch.Generator().manual_seed(5), kernel=kernel)
     assert check.ok and check.max_abs_err == 0.0, check
-    if kernel == "K1":
+    if not selftest.KERNELS[kernel].backward:
         assert check.ulp_share == 0.0 and check.over is None, check
     else:
         assert check.ulp_share is None and check.over == check.beyond_flips_rel_err == 0, check
@@ -182,27 +186,6 @@ def test_served_layers_of_the_plan(plan_layers):
     assert by == "operations" and 0.3 < ms < 0.45
 
 
-@pytest.mark.parametrize("idx", selftest.KERNEL_LAYERS)
-def test_k3a_bar_refuses_unrounded_stages(idx, plan_layers):
-    """K3a's bf16 bar tells it from the function it must differ from: the same
-    products with every stage kept in f32 (K1's function) fail it at each bf16
-    plan layer, L3's and L10's crops included, on 8 planes; the plain version,
-    stages rounded, passes."""
-    name, layer = plan_layers[idx]
-    x, fu, fd, kw = selftest._layer_inputs(layer, 1, torch.bfloat16, torch.device("cpu"),
-                                           torch.Generator().manual_seed(idx))
-    x = x[:, :8].contiguous()
-    tol = selftest.KERNELS["K3a"].tol(torch.bfloat16)
-
-    def plain(s):
-        return filtered_lrelu_bands.banded_fwd_plain(x[s], fu, fd, **kw)
-
-    unrounded = filtered_lrelu_bands.banded_fwd_plain(x.float(), fu, fd, **kw).bfloat16()
-    check = selftest._against_plain(name, unrounded, torch.bfloat16, plain, tol)
-    assert not check.ok, check
-    assert selftest._against_plain(name, plain(slice(None)), torch.bfloat16, plain, tol).ok
-
-
 def _plan_case(layer, idx, planes=8):
     """A plan layer's seeded bf16 input on `planes` planes, its output
     gradient, filters and keyword arguments."""
@@ -214,19 +197,17 @@ def _plan_case(layer, idx, planes=8):
     return x, dy, fu, fd, kw
 
 
-@pytest.mark.parametrize("variant", ["f32_stages", "w_first"])
-@pytest.mark.parametrize("idx", selftest.KERNEL_LAYERS)
-def test_k1_bars_refuse_unrounded_stages(idx, variant, plan_layers):
-    """K1's bf16 bars tell the stage-rounded function from the ones it must
-    not compute: the same products with f32 stages, and the composed op in
-    f32 (W pass first, the order of the f32 kernel) fail them at each bf16
-    plan layer on 8 planes, through the share of elements more than one bf16
-    ulp of their own off (the max-abs bar alone passes some); the plain
-    version passes."""
+def _ulp_bars_refuse_unrounded_stages(kernel, idx, variant, plan_layers):
+    """`kernel`'s bf16 bars (K1's pair: max-abs K1_TOL and K1_ULP_SHARE) fail
+    the same products with f32 stages, or the composed op in f32 (W pass
+    first, the order of the f32 kernel), at plan layer `idx` on 8 planes,
+    through the share of elements more than one bf16 ulp of their own off
+    (the max-abs bar alone passes some); the plain version passes them."""
     name, layer = plan_layers[idx]
     x, _, fu, fd, kw = _plan_case(layer, idx)
-    k1 = selftest.KERNELS["K1"]
-    bars = (k1.tol(torch.bfloat16), k1.bf16_ulp_share)
+    k = selftest.KERNELS[kernel]
+    bars = (k.tol(torch.bfloat16), k.bf16_ulp_share)
+    assert bars == (selftest.K1_TOL, selftest.K1_ULP_SHARE)
 
     def plain(s):
         return filtered_lrelu_bands.banded_fwd_plain(x[s], fu, fd, **kw)
@@ -239,6 +220,22 @@ def test_k1_bars_refuse_unrounded_stages(idx, variant, plan_layers):
     assert not check.ok and check.ulp_share > 10 * selftest.K1_ULP_SHARE, check
     check = selftest._against_plain(name, plain(slice(None)), torch.bfloat16, plain, *bars)
     assert check.ok and check.ulp_share == 0.0, check
+
+
+@pytest.mark.parametrize("variant", ["f32_stages", "w_first"])
+@pytest.mark.parametrize("idx", selftest.KERNEL_LAYERS)
+def test_k1_bars_refuse_unrounded_stages(idx, variant, plan_layers):
+    """K1's bf16 bars tell the stage-rounded function from the ones it must
+    not compute, at each bf16 plan layer."""
+    _ulp_bars_refuse_unrounded_stages("K1", idx, variant, plan_layers)
+
+
+@pytest.mark.parametrize("variant", ["f32_stages", "w_first"])
+@pytest.mark.parametrize("idx", selftest.KERNEL_LAYERS)
+def test_k3a_bar_refuses_unrounded_stages(idx, variant, plan_layers):
+    """K3a's bf16 bars, K1's pair, tell it from the same functions at each
+    bf16 plan layer, L3's and L10's crops included."""
+    _ulp_bars_refuse_unrounded_stages("K3a", idx, variant, plan_layers)
 
 
 def _k2_bars(x, dy, fu, fd, kw):
@@ -298,6 +295,66 @@ def test_act_flip_bound_covers_flips(idx, plan_layers):
     assert check.rel_err > selftest.K2_RESIDUAL_TOL, check
     assert check.beyond_flips_rel_err <= selftest.K2_RESIDUAL_TOL, check
     assert check.over_in_reach == check.over > 0, check
+
+
+def _bwd_flipped_at(x, dy, fu, fd, up, down, padding, gain, slope, clamp, site):
+    """`banded_bwd_plain` in f32 with act' taken on the other side of its jump
+    at the single U element `site` (plane, row, column)."""
+    (au, bu, ad, bd), _ = filtered_lrelu_bands._plain_setup(x, fu, fd, up, down, padding)
+    n, c, h, w = x.shape
+    u = (au @ x.reshape(n * c, h, w)) @ bu.T
+    u[site] = -1.0 if u[site] >= 0 else 1.0
+    g = filtered_lrelu_bands.act_grad(u, gain, slope, clamp)
+    dz = (ad.T @ dy.reshape(n * c, *dy.shape[2:])) @ bd
+    return (au.T @ ((dz * g) @ bu)).reshape(n, c, h, w)
+
+
+@pytest.mark.parametrize("variant", ["flip", "wrong_sign", "far_from_zero"])
+@pytest.mark.parametrize("idx", [0, 3])
+def test_act_flip_witness(idx, variant, plan_layers):
+    """K3b's f32 bar beyond witnessed flips (L0: up 2; L3: up 4 with a crop),
+    on 2 planes in f32. With U set within f32 rounding of 0 at the element of
+    the largest dZ, dX with act' flipped there is more than TOLS[f32] off,
+    and the witness explains it as one flip. The same move with the wrong
+    sign, or a flip at a U far from 0, is not explained and fails the bar."""
+    name, layer = plan_layers[idx]
+    g = torch.Generator().manual_seed(60 + idx)
+    x, fu, fd, kw = selftest._layer_inputs(layer, 1, torch.float32, torch.device("cpu"), g)
+    x = x[:, :2].contiguous()
+    out_hw = output_size(x.shape[2], x.shape[3], fu, fd, kw["up"], kw["down"], kw["padding"])
+    dy = torch.randn((1, 2) + out_hw, generator=g)
+    (au, bu, ad, bd), _ = filtered_lrelu_bands._plain_setup(x, fu, fd, kw["up"], kw["down"],
+                                                            kw["padding"])
+    dz = (ad.T @ dy[0] @ bd)[0]
+    i, j = divmod(int(dz.abs().argmax()), dz.shape[1])
+    if variant == "far_from_zero":
+        u = au.double() @ x[0, 0].double() @ bu.double().T
+        i, j = divmod(int((u.abs() * dz.abs()).argmax()), u.shape[1])
+    else:   # one pixel of x takes U[i, j] to 0
+        r, col = int(au[i].abs().argmax()), int(bu[j].abs().argmax())
+        u = au[i].double() @ x[0, 0].double() @ bu[j].double()
+        x[0, 0, r, col] -= float(u / (au[i, r].double() * bu[j, col].double()))
+
+    def plain(s):
+        return filtered_lrelu_bands.banded_bwd_plain(x[s], dy[s], fu, fd, **kw)
+
+    def witness(s, err):
+        return filtered_lrelu_bands.act_flip_witness(x[s], dy[s], err, fu, fd, **kw)
+
+    want = plain(slice(None))
+    out = _bwd_flipped_at(x, dy, fu, fd, **kw, site=(0, i, j))
+    if variant == "wrong_sign":
+        out = 2 * want - out
+    tol = selftest.KERNELS["K3b"].tol(torch.float32)
+    assert tol == selftest.TOLS[torch.float32]
+    check = selftest._against_plain(name, out, torch.float32, plain, tol, witness=witness)
+    assert check.rel_err > 10 * tol and check.over > 0, check
+    if variant == "flip":
+        assert check.ok and check.flips == 1 <= check.near_zero, check
+        assert check.beyond_flips_rel_err < 1e-6 and check.over_in_reach == check.over, check
+    else:
+        assert not check.ok and check.flips == 0, check
+        assert check.beyond_flips_rel_err > 10 * tol, check
 
 
 def test_kernel_entry_rejects_cpu_tensor():
@@ -432,21 +489,34 @@ def test_bwd_kernel_matches_plain_f32(idx, cuda_device, plan_layers):
     assert check.ok, check
 
 
+TENSOR_CORE_PAIRS = {
+    "K1/K2": (filtered_lrelu_cuda.filtered_lrelu_fwd_cuda,
+              filtered_lrelu_cuda.filtered_lrelu_bwd_cuda),
+    "K3a/K3b": (filtered_lrelu_fused.fused_fwd_cuda, filtered_lrelu_fused.fused_bwd_cuda),
+}
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernels,dtype", [("K1/K2", torch.bfloat16),
+                                           ("K3a/K3b", torch.bfloat16),
+                                           ("K3a/K3b", torch.float32)])
 @pytest.mark.parametrize("shape", [(2, 3, 12, 16), (1, 2, 13, 17), (1, 1, 70, 33)])
-def test_tensor_core_kernels_at_small_and_odd_sizes(shape, cuda_device):
-    """The bf16 K1 and K2 at maps smaller than a tile and of odd widths (their
-    patches load element by element) against their plain versions."""
+def test_tensor_core_kernels_at_small_and_odd_sizes(shape, kernels, dtype, cuda_device):
+    """The tensor-core K1/K2 and K3a/K3b at maps smaller than a tile and of
+    odd widths (bf16 patches load element by element there) against their
+    plain versions."""
     g = torch.Generator().manual_seed(7)
-    x = torch.randn(shape, generator=g).to(cuda_device, torch.bfloat16)
+    x = torch.randn(shape, generator=g).to(cuda_device, dtype)
     kw = dict(up=2, down=2, padding=9, gain=1.41, slope=0.2, clamp=4.0)
-    y = filtered_lrelu_cuda.filtered_lrelu_fwd_cuda(x, FU, FU, **kw)
-    dy = torch.randn(y.shape, generator=g).to(cuda_device, torch.bfloat16)
-    dx = filtered_lrelu_cuda.filtered_lrelu_bwd_cuda(x, dy, FU, FU, **kw)
+    fwd, bwd = TENSOR_CORE_PAIRS[kernels]
+    y = fwd(x, FU, FU, **kw)
+    dy = torch.randn(y.shape, generator=g).to(cuda_device, dtype)
+    dx = bwd(x, dy, FU, FU, **kw)
+    f32 = dtype == torch.float32
     for got, want, tol in ((y, filtered_lrelu_bands.banded_fwd_plain(x, FU, FU, **kw),
-                            selftest.K1_TOL),
+                            selftest.EXACT_F32_TOL if f32 else selftest.K1_TOL),
                            (dx, filtered_lrelu_bands.banded_bwd_plain(x, dy, FU, FU, **kw),
-                            selftest.TOLS[torch.bfloat16])):
+                            selftest.TOLS[dtype])):
         err = (got.float() - want.float()).abs().max().item()
         assert err <= tol * want.float().abs().max().item(), err
 
@@ -482,12 +552,13 @@ def _small_layer():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel,frames", [("K3a", 16), ("K3b", TRAIN_FRAMES)])
-@pytest.mark.parametrize("where", ["small", "L3"])
+@pytest.mark.parametrize("where", ["small", "L0", "L1", "L2", "L3"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_kernels_match_plain(kernel, frames, where, dtype, cuda_device, plan_layers):
-    """K3a and K3b at a small up-2 geometry and at L3 (31x38, up 4, a crop:
-    the geometry that once miscompiled on the TPU)."""
-    name, layer = _small_layer() if where == "small" else plan_layers[3]
+    """K3a and K3b at a small up-2 geometry, at the f32 head layers L0-L2
+    (31x38, up 2) and at L3 (31x38, up 4, a crop: the geometry that once
+    miscompiled on the TPU), each in f32 (three-part products) and bf16."""
+    name, layer = _small_layer() if where == "small" else plan_layers[int(where[1:])]
     gen = torch.Generator().manual_seed(400)
     check = selftest.check_layer(layer, name, frames, dtype, cuda_device, gen, kernel=kernel)
     assert check.ok, check

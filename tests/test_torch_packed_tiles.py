@@ -1,4 +1,5 @@
-"""K1 and K2, the bf16 filtered_lrelu kernels of `impl="packed"`, on the CPU.
+"""The tensor-core filtered_lrelu kernels, K1/K2 (`impl="packed"`) and K3a/K3b
+(`impl="fused"`), on the CPU.
 
 (a) Their plain versions (`filtered_lrelu_bands.banded_fwd_plain` /
     `banded_bwd_plain`: the four banded products with the TPU kernel's bf16
@@ -13,8 +14,13 @@
     tile here as csrc/filtered_lrelu_tc.cu contracts them (only the K-blocks
     of each window, at the kernels' fixed window widths; patches zero outside
     the map, ragged edge tiles cropped),
-    reproduce the plain versions at every L3-L13 geometry: f32 to 1e-5, bf16
-    to 2**-8 of the largest output.
+    reproduce the plain versions at every L0-L13 geometry (L0-L2, the f32
+    head layers, are K3's only): f32 to 1e-5, bf16 to 2**-8 of the largest
+    output.
+(c) The f32 kernels' three-part bf16 products (`filtered_lrelu_bands.
+    split_matmul`), contracted over the same plans at L0-L2, meet K3a's and
+    K3b's f32 bars; one bf16 pass and one TF32 pass do not.
+(d) K3's tiles fit a block's shared memory at every plan geometry.
 """
 
 import importlib
@@ -29,7 +35,7 @@ import torch
 
 from long_video_gan_tpu_torch import selftest
 from long_video_gan_tpu_torch.ops import filtered_lrelu_bands as bands
-from long_video_gan_tpu_torch.ops import filtered_lrelu_cuda
+from long_video_gan_tpu_torch.ops import filtered_lrelu_cuda, filtered_lrelu_fused
 from long_video_gan_tpu_torch.ops.filtered_lrelu import filtered_lrelu, output_size
 
 jax_flr = importlib.import_module("long_video_gan_tpu.ops.filtered_lrelu")
@@ -146,16 +152,16 @@ def _windowed(op, kb, taps, rounded):
     return torch.where(keep, block, torch.zeros(()))
 
 
-def _lhs(op, kb, b, taps, rounded):
+def _lhs(op, kb, b, taps, rounded, mm=torch.matmul):
     """op [M, K] . b [..., K, N], windows per 16-row block of op: an
     A-operand band (the kernel's t1, s1, out and dX products)."""
-    return _windowed(op, kb, taps, rounded) @ b
+    return mm(_windowed(op, kb, taps, rounded), b)
 
 
-def _rhs(a, op, kb, taps, rounded):
+def _rhs(a, op, kb, taps, rounded, mm=torch.matmul):
     """a [..., M, K] . op^T, op stored [N, K]: a B-operand band (U, t3, dZ,
     dt1), windows per 16 columns of the result."""
-    return a @ _windowed(op, kb, taps, rounded).T
+    return mm(a, _windowed(op, kb, taps, rounded).T)
 
 
 def _untile(tiles, ty, tx, tile, h, w):
@@ -164,23 +170,23 @@ def _untile(tiles, ty, tx, tile, h, w):
     return t.reshape(tiles.shape[1], ty * tile, tx * tile)[:, :h, :w]
 
 
-def tiled_fwd(x, plan, widths, taps, gain, slope, clamp, out_hw):
+def tiled_fwd(x, plan, widths, taps, gain, slope, clamp, out_hw, mm=torch.matmul):
     """K1's contraction: per T x T output tile, t1 = Au . X (patch), U = t1 .
     Bu^T, Z = act(U), t3 = Z . Bd^T, out = Ad . t3, stages rounded to x's
-    type."""
+    type; every product is `mm`."""
     rounded = lambda t: t.to(x.dtype).float()   # noqa: E731
     (oh, ow), tile = out_hw, plan.tile
     ty, tx = bands.tile_counts(oh, ow, tile)
     xp = _patches(x.float(), [t * plan.step + plan.y.base for t in range(ty)],
                   [t * plan.step + plan.x.base for t in range(tx)], plan.pp)
     o = {name: (op, widths[name]) for name, op in plan.ops.items()}
-    t1 = rounded(_lhs(*o["au_y"], xp, taps, rounded))
-    z = rounded(bands.act(_rhs(t1, *o["au_x"], taps, rounded), gain, slope, clamp))
-    t3 = rounded(_rhs(z, *o["ad_x"], taps, rounded))
-    return _untile(_lhs(*o["ad_y"], t3, taps, rounded), ty, tx, tile, oh, ow).to(x.dtype)
+    t1 = rounded(_lhs(*o["au_y"], xp, taps, rounded, mm))
+    z = rounded(bands.act(_rhs(t1, *o["au_x"], taps, rounded, mm), gain, slope, clamp))
+    t3 = rounded(_rhs(z, *o["ad_x"], taps, rounded, mm))
+    return _untile(_lhs(*o["ad_y"], t3, taps, rounded, mm), ty, tx, tile, oh, ow).to(x.dtype)
 
 
-def tiled_bwd(x, dy, plan, widths, taps, gain, slope, clamp):
+def tiled_bwd(x, dy, plan, widths, taps, gain, slope, clamp, mm=torch.matmul):
     """K2's contraction: per T x T dX tile, t1 = Au . X, s1 = Ad^T . dY,
     dU = (s1 . Bd) * act'(t1 . Bu^T), dt1 = dU . Bu, dX = Au^T . dt1."""
     rounded = lambda t: t.to(x.dtype).float()   # noqa: E731
@@ -191,12 +197,12 @@ def tiled_bwd(x, dy, plan, widths, taps, gain, slope, clamp):
     dp = _patches(dy.float(), [t * plan.dstep + plan.y.d_base for t in range(ty)],
                   [t * plan.dstep + plan.x.d_base for t in range(tx)], plan.pd)
     o = {name: (op, widths[name]) for name, op in plan.ops.items()}
-    t1 = rounded(_lhs(*o["au_y"], xp, taps, rounded))
-    s1 = rounded(_lhs(*o["adt_y"], dp, taps, rounded))
-    g = bands.act_grad(_rhs(t1, *o["au_x"], taps, rounded), gain, slope, clamp)
-    du = rounded(_rhs(s1, *o["adt_x"], taps, rounded) * g)
-    dt1 = rounded(_rhs(du, *o["aut_x"], taps, rounded))
-    return _untile(_lhs(*o["aut_y"], dt1, taps, rounded), ty, tx, tile, h, w).to(x.dtype)
+    t1 = rounded(_lhs(*o["au_y"], xp, taps, rounded, mm))
+    s1 = rounded(_lhs(*o["adt_y"], dp, taps, rounded, mm))
+    g = bands.act_grad(_rhs(t1, *o["au_x"], taps, rounded, mm), gain, slope, clamp)
+    du = rounded(_rhs(s1, *o["adt_x"], taps, rounded, mm) * g)
+    dt1 = rounded(_rhs(du, *o["aut_x"], taps, rounded, mm))
+    return _untile(_lhs(*o["aut_y"], dt1, taps, rounded, mm), ty, tx, tile, h, w).to(x.dtype)
 
 
 def _close(got, want, dtype):
@@ -206,25 +212,138 @@ def _close(got, want, dtype):
     assert got.shape == want.shape and err <= tol * scale, (err, scale)
 
 
-@pytest.mark.parametrize("idx", selftest.KERNEL_LAYERS)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_tile_plans_contract_to_plain(idx, dtype, plan_layers):
-    """The forward's and the backward's tile plans at each bf16 layer of the
-    plan (L3 and L13 crop their padding; every layer has ragged edge
-    tiles)."""
-    x, dy, fu, fd, kw = _layer_case(plan_layers[idx][1], 1, seed=20 + idx, scale=2.0)
-    x, dy = torch.from_numpy(x).to(dtype), torch.from_numpy(dy).to(dtype)
+def _contract(x, dy, fu, fd, kw, mm=torch.matmul):
+    """The forward's and the backward's tile plans of the wrapper contracted
+    on one plane of x [1, 1, H, W] (and dy), every product `mm`."""
     up, down, pad = kw["up"], kw["down"], kw["padding"]
     taps = filtered_lrelu_cuda.kernel_geometry(x, fu, fd, up, down, pad)[3]
     geometry = (up, down, pad, len(fu), len(fd), torch.device("cpu"))
-    act_kw = dict(taps=taps, gain=kw["gain"], slope=kw["slope"], clamp=kw["clamp"])
+    act_kw = dict(taps=taps, gain=kw["gain"], slope=kw["slope"], clamp=kw["clamp"], mm=mm)
 
     def plan(backward):
         """The wrapper's plan and the window widths its kernel walks."""
         plan, _, _, where = filtered_lrelu_cuda._tc_plan(backward, *geometry)
         return plan, {name: w[3] for name, w in where.items()}
 
-    want = bands.banded_fwd_plain(x, fu, fd, **kw)[0]
-    _close(tiled_fwd(x[0], *plan(False), out_hw=want.shape[1:], **act_kw), want, dtype)
-    want = bands.banded_bwd_plain(x, dy, fu, fd, **kw)[0]
-    _close(tiled_bwd(x[0], dy[0], *plan(True), **act_kw), want, dtype)
+    out_hw = output_size(x.shape[2], x.shape[3], fu, fd, up, down, pad)
+    return (tiled_fwd(x[0], *plan(False), out_hw=out_hw, **act_kw),
+            tiled_bwd(x[0], dy[0], *plan(True), **act_kw))
+
+
+@pytest.mark.parametrize("idx", range(14))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tile_plans_contract_to_plain(idx, dtype, plan_layers):
+    """The forward's and the backward's tile plans at each layer of the plan
+    that resamples: L0-L2 (f32, K3 only; a 29x36 plane takes two 32-wide
+    tiles across) and the bf16 layers (L3 and L13 crop their padding; every
+    layer has ragged edge tiles)."""
+    x, dy, fu, fd, kw = _layer_case(plan_layers[idx][1], 1, seed=20 + idx, scale=2.0)
+    x, dy = torch.from_numpy(x).to(dtype), torch.from_numpy(dy).to(dtype)
+    fwd, bwd = _contract(x, dy, fu, fd, kw)
+    _close(fwd, bands.banded_fwd_plain(x, fu, fd, **kw)[0], dtype)
+    _close(bwd, bands.banded_bwd_plain(x, dy, fu, fd, **kw)[0], dtype)
+
+
+# ---------------------------------------------------------------------------
+# (c) The f32 kernels' three-part products.
+
+
+def _tf32(t):
+    """t's operands rounded to TF32 (10 mantissa bits, to nearest even)."""
+    i = t.contiguous().view(torch.int32)
+    return ((i + 0x0FFF + ((i >> 13) & 1)) & ~0x1FFF).view(torch.float32)
+
+
+ONE_PASS = {
+    "bf16": lambda a, b: a.bfloat16().float() @ b.bfloat16().float(),
+    "tf32": lambda a, b: _tf32(a) @ _tf32(b),
+}
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("idx", [0, 1, 2])
+def test_split_products_meet_f32_bars(idx, backward, plan_layers):
+    """At the f32 head layers, on one plane, the tile plans contracted with
+    every product in three bf16 parts (six partial products, as the f32 K3a
+    and K3b compute them) meet K3a's f32 bar (EXACT_F32_TOL, forward) and
+    K3b's (1e-4 beyond witnessed act' flips, gradient) against the f32 plain
+    versions; a single bf16 pass and a single TF32 pass do not."""
+    x, dy, fu, fd, kw = _layer_case(plan_layers[idx][1], 1, seed=40 + idx, scale=2.0)
+    x, dy = torch.from_numpy(x), torch.from_numpy(dy)
+    kernel = selftest.KERNELS["K3b" if backward else "K3a"]
+    tol = kernel.tol(torch.float32)
+    if backward:
+        assert tol == 1e-4 and kernel.f32_flip_witness
+        bars = dict(witness=lambda s, err: bands.act_flip_witness(x[s], dy[s], err, fu, fd,
+                                                                  **kw))
+        plain = lambda s: bands.banded_bwd_plain(x[s], dy[s], fu, fd, **kw)   # noqa: E731
+    else:
+        assert tol == selftest.EXACT_F32_TOL and not kernel.f32_flip_witness
+        bars = {}
+        plain = lambda s: bands.banded_fwd_plain(x[s], fu, fd, **kw)   # noqa: E731
+
+    def check(mm):
+        got = _contract(x, dy, fu, fd, kw, mm)[int(backward)]
+        return selftest._against_plain("L", got[None], torch.float32, plain, tol, **bars)
+
+    c = check(bands.split_matmul)
+    assert c.ok and c.rel_err <= (1e-4 if backward else tol), c
+    for name, mm in ONE_PASS.items():
+        c = check(mm)
+        assert not c.ok, (name, c)
+        if backward:
+            assert c.beyond_flips_rel_err > 1e-4, (name, c)
+
+
+# ---------------------------------------------------------------------------
+# (d) The tensor-core kernels' shared-memory footprints.
+
+SMEM_PER_BLOCK = 227 * 1024   # the H100's opt-in shared memory per block
+
+
+def _align16(n):
+    return -(-n // 16) * 16
+
+
+def smem_bytes(backward, parts, plan, index, windows):
+    """A block's shared memory, as csrc/filtered_lrelu_tc.cuh `fwd_smem` /
+    `bwd_smem` lay it out for `parts` bf16 parts per operand: windows,
+    operators, patch buffers (two for bf16 maps; for f32 maps three planes
+    and a raw f32 patch), and `parts` planes of each stage."""
+    ld = bands.smem_ld
+    head = _align16(windows.numel() * 4) + _align16(parts * index.numel() * 2)
+    buffers = 2 if parts == 1 else parts
+
+    def patch(n):
+        return (buffers * _align16(n * ld(n) * 2)
+                + (0 if parts == 1 else _align16(n * n * 4)))
+
+    rp, tile = plan.rp, plan.tile
+    last = _align16(max(rp * ld(rp), tile * ld(tile)) * 2)   # Z or dU, then the output tile
+    if backward:
+        stages = (_align16(max(rp * ld(plan.px), rp * ld(tile)) * 2)
+                  + _align16(rp * ld(plan.pd) * 2) + last)
+        return head + patch(plan.px) + patch(plan.pd) + parts * stages
+    stages = _align16(max(rp * ld(plan.pp), rp * ld(tile)) * 2) + last
+    return head + patch(plan.pp) + parts * stages
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_tiles_fit_shared_memory(dtype, backward, plan_layers):
+    """At every L0-L13 geometry, K3's tile (`filtered_lrelu_fused.tile_for`)
+    fits a block's shared memory in either map type; the f32 backward at up
+    4 takes the half tile because the full one would not."""
+    parts = filtered_lrelu_cuda.tc_parts(torch.empty(0, dtype=dtype))
+    for name, layer in plan_layers[:14]:
+        up = layer.up_factor
+        geometry = (up, layer.down_factor, tuple(layer.padding), layer.up_filter.shape[0],
+                    layer.down_filter.shape[0], torch.device("cpu"))
+        tile = filtered_lrelu_fused.tile_for(backward, dtype, up)
+        footprint = smem_bytes(backward, parts,
+                               *filtered_lrelu_cuda._tc_plan(backward, *geometry, tile)[:3])
+        assert footprint <= SMEM_PER_BLOCK, (name, tile, footprint)
+        if tile != filtered_lrelu_cuda.TILE:
+            full = smem_bytes(backward, parts, *filtered_lrelu_cuda._tc_plan(
+                backward, *geometry, filtered_lrelu_cuda.TILE)[:3])
+            assert full > SMEM_PER_BLOCK, (name, full)
