@@ -1,14 +1,14 @@
-"""Smoke run of the PyTorch port on one NVIDIA GPU: builds the port's six CUDA
+"""Smoke run of the PyTorch port on one NVIDIA GPU: builds the port's five CUDA
 sources from the checkout (six kernels; K1 and K2 have a bf16 tensor-core
-source and an f32 one, K3a and K3b one tensor-core source for both types),
-prints the tensor-core kernels' registers, spills and HMMA instruction counts
-(K1/K2 and K3a/K3b, each type), holds each kernel against its plain version
-at every layer geometry its paths give it (K1 forward at generation and
-training size, also against the f32 composed op; K2 backward at training
-size; K3a forward at generation and training size, K3b backward at training
-size; K4 and K5 at generation size), with the tensor-core kernels' executed
-rate and per-layer tables of time, bound and share, then drives each path
-through the entry points a user calls:
+source and two f32 ones, K3a and K3b one tensor-core source for both types,
+K4 and K5 another), prints the tensor-core kernels' registers, spills and HMMA
+instruction counts (K1/K2 in bf16; K3a/K3b and K4/K5, each type), holds each
+kernel against its plain version at every layer geometry its paths give it
+(K1 forward at generation and training size, also against the f32 composed
+op; K2 backward at training size; K3a forward at generation and training
+size, K3b backward at training size; K4 and K5 at generation size), with the
+tensor-core kernels' executed rate and per-layer tables of time, bound and
+share, then drives each path through the entry points a user calls:
 
 - full-width two-stage generation through
   `long_video_gan_tpu_torch.generate.generate_video`, with the kernel policy
@@ -139,13 +139,13 @@ def main(argv=None) -> int:
     # each, all together.
     phase("build")
     # K1 and K2 on the main path: the bf16 tensor-core source (their f32
-    # kernels serve the f32 checks only).
+    # kernels serve the f32 checks only). K4 and K5 share one library.
     sources = {"K1": filtered_lrelu_cuda.TC_SOURCE, "K2": filtered_lrelu_cuda.TC_SOURCE,
                "K3a": filtered_lrelu_fused.SOURCE, "K3b": filtered_lrelu_fused.SOURCE,
                "K4": filtered_lrelu_exact.SOURCE, "K5": filtered_lrelu_polyphase.SOURCE}
     libraries = (filtered_lrelu_cuda.tc_library, filtered_lrelu_cuda.library,
                  filtered_lrelu_cuda.bwd_library, filtered_lrelu_fused.library,
-                 filtered_lrelu_exact.library, filtered_lrelu_polyphase.library)
+                 filtered_lrelu_exact.library)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libraries)) as pool:
         for future in [pool.submit(lib) for lib in libraries]:
@@ -393,6 +393,14 @@ def check_kernel(layers, frames: int, device, gen, kernel: str, f32_extra=()):
         if c.ulp_share is not None:
             timing += (f" off by > 1 ulp {c.ulp_share:.2e} of the elements "
                        f"(tol {selftest.K1_ULP_SHARE:g})")
+        if c.beyond_half_ulp_rel_err is not None:
+            timing += f" beyond half a bf16 ulp {c.beyond_half_ulp_rel_err:.2e} (tol {c.tol:g})"
+        if c.ms is not None and selftest.KERNELS[kernel].f32_arithmetic:
+            # K4/K5 were priced at the f32 CUDA-core peak before they ran on
+            # the tensor cores: that bound beside today's, once per layer.
+            old, old_by = selftest.bound(by_name[c.name], frames, getattr(torch, c.dtype),
+                                         False, peak_flops=selftest.PEAK_FLOPS[torch.float32])
+            timing += f" (at the f32 CUDA-core peak: {old:.3f} ms, {old_by}, {old / c.ms:.2%})"
         if c.flips is not None:
             timing += (f" beyond witnessed act' flips {c.beyond_flips_rel_err:.2e} "
                        f"(tol {c.flip_tol:g}), flips {c.flips} of {c.near_zero} U near 0, "
@@ -427,13 +435,15 @@ def check_kernel(layers, frames: int, device, gen, kernel: str, f32_extra=()):
 TENSOR_CORE_KERNELS = {"K1": ("filtered_lrelu_tc.cu", "filtered_lrelu_fwd_tc_kernel"),
                        "K2": ("filtered_lrelu_tc.cu", "filtered_lrelu_bwd_tc_kernel"),
                        "K3a": ("filtered_lrelu_fused_tc.cu", "filtered_lrelu_fused_fwd_tc_kernel"),
-                       "K3b": ("filtered_lrelu_fused_tc.cu", "filtered_lrelu_fused_bwd_tc_kernel")}
+                       "K3b": ("filtered_lrelu_fused_tc.cu", "filtered_lrelu_fused_bwd_tc_kernel"),
+                       "K4": ("filtered_lrelu_exact_tc.cu", "filtered_lrelu_exact_tc_kernel"),
+                       "K5": ("filtered_lrelu_exact_tc.cu", "filtered_lrelu_polyphase_tc_kernel")}
 
 
 def tensor_core_report() -> None:
     """The tensor-core kernels' registers and spills (ptxas, kept beside the
     library) and HMMA instruction counts (cuobjdump -sass of the library), for
-    each instantiation (K3a/K3b: bf16 and f32 maps); raises unless each uses
+    each instantiation (K3a-K5: bf16 and f32 maps); raises unless each uses
     the tensor cores and spills nothing."""
     from pathlib import Path
 
@@ -462,8 +472,7 @@ def tensor_core_report() -> None:
             for name in names:
                 regs, spills = usage[name]
                 count = hmma.get(name, 0)
-                kind = ("f32 maps" if re.search(rf"{kernel}IfE", name) else "bf16 maps"
-                        ) if which in ("K3a", "K3b") else "bf16 maps"
+                kind = "f32 maps" if re.search(rf"{kernel}IfE", name) else "bf16 maps"
                 print(f"{which} tensor-core kernel {kernel} ({kind}): {regs} registers, "
                       f"spill stores/loads {spills or '?'} bytes, HMMA instructions {count}")
                 if not count or spills != ("0", "0"):

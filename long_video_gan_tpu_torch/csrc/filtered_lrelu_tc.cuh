@@ -1,6 +1,8 @@
 // The tensor-core filtered_lrelu tile kernels for Hopper (sm_90a), shared by
-// K1/K2 (filtered_lrelu_tc.cu, impl "packed") and K3a/K3b
-// (filtered_lrelu_fused_tc.cu, impl "fused"). Per plane X, stage for stage:
+// K1/K2 (filtered_lrelu_tc.cu, impl "packed"), K3a/K3b
+// (filtered_lrelu_fused_tc.cu, impl "fused") and the f32-exact forwards K4/K5
+// (filtered_lrelu_exact_tc.cu, impl "pallas" and filtered_lrelu_pallas_v2).
+// Per plane X, stage for stage:
 //   t1 = Au . X,  Z = act(t1 . Bu^T),  t3 = Z . Bd^T,  out = Ad . t3;
 //   t1 = Au . X,  s1 = Ad^T . dY,  dU = (s1 . Bd) * act'(t1 . Bu^T),
 //   dt1 = dU . Bu,  dX = Au^T . dt1;
@@ -12,14 +14,16 @@
 // - kS = 1 (bf16 maps): operators, t1, Z, t3 (t1, s1, dU, dt1) and the result
 //   in bf16, every sum in f32: the TPU kernels' stores, and what bf16
 //   tensor-core operands round to anyway.
-// - kS = 3 (f32 maps, the TPU kernel's Precision.HIGHEST): every f32 operand
-//   (operators, patches, stages) is held as three bf16 parts hi + mid + lo,
-//   each the rounding of what the parts before it leave, which together hold
-//   its f32 value. A product sums, in f32, the six partial products above
-//   2^-24 of the operands' scale: hi.hi into one accumulator, and hi.mid,
-//   mid.hi, hi.lo, lo.hi, mid.mid into another, added at the end (the
-//   tensor cores truncate as they accumulate, so the small terms keep their
-//   own sum). Stages stay f32 and are split as they are stored.
+// - kS = 3 (f32 stages, the TPU kernel's Precision.HIGHEST): every f32
+//   operand (operators, f32 patches, stages) is held as three bf16 parts
+//   hi + mid + lo, each the rounding of what the parts before it leave, which
+//   together hold its f32 value. A product sums, in f32, the six partial
+//   products above 2^-24 of the operands' scale: hi.hi into one accumulator,
+//   and hi.mid, mid.hi, hi.lo, lo.hi, mid.mid into another, added at the end
+//   (the tensor cores truncate as they accumulate, so the small terms keep
+//   their own sum). Stages stay f32 and are split as they are stored. A bf16
+//   patch is exact in one part, so on bf16 maps (K4/K5) t1 = Au . X takes
+//   three partial products, and only the output rounds to bf16.
 //
 // Design:
 // - One T x T output (dX) tile per step (the wrapper takes T = 32).
@@ -53,10 +57,12 @@
 //   wider or interleaved items did not.
 #pragma once
 
+#include <climits>
 #include <cstdint>
 #include <cstring>
 
-#include "filtered_lrelu_common.cuh"
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
 
 namespace {
 
@@ -85,6 +91,7 @@ struct BwdParams {
   int ops_elems, n_win;
 };
 
+__host__ __device__ __forceinline__ int imax(int a, int b) { return a > b ? a : b; }
 __host__ __device__ __forceinline__ int ld_of(int cols) { return (cols + 15) / 16 * 16 + 8; }
 __host__ __device__ __forceinline__ int align16(int bytes) { return (bytes + 15) / 16 * 16; }
 
@@ -157,18 +164,27 @@ __device__ __forceinline__ void mma_16x16(float (&c)[2][4], const uint32_t (&a)[
   mma_bf16(c[1], a, b[2], b[3]);
 }
 
-// One m16 x n16 x k16 step of a product whose operands are held in kS parts:
-// kS = 1 one product into `hi`; kS = 3 hi.hi into `hi` and the five products
-// of the smaller parts above 2^-24 into `lo`.
-template <int kS>
+// One m16 x n16 x k16 step of a product whose operands are held in kSA and
+// kSB parts: one part each, one product into `hi`; else hi.hi into `hi` and
+// the products of the smaller parts above 2^-24 into `lo` (five for three
+// parts each, two for three parts by one).
+template <int kSA, int kSB>
 __device__ __forceinline__ void mma_parts(float (&hi)[2][4], float (&lo)[2][4],
-                                          const uint32_t (&a)[kS][4], const uint32_t (&b)[kS][4]) {
-  if constexpr (kS == 3) {
+                                          const uint32_t (&a)[kSA][4],
+                                          const uint32_t (&b)[kSB][4]) {
+  static_assert((kSA == 1 || kSA == 3) && (kSB == 1 || kSB == 3), "one or three parts");
+  if constexpr (kSA == 3 && kSB == 3) {
     mma_16x16(lo, a[1], b[1]);
     mma_16x16(lo, a[0], b[2]);
     mma_16x16(lo, a[2], b[0]);
     mma_16x16(lo, a[0], b[1]);
     mma_16x16(lo, a[1], b[0]);
+  } else if constexpr (kSA == 3) {
+    mma_16x16(lo, a[2], b[0]);
+    mma_16x16(lo, a[1], b[0]);
+  } else if constexpr (kSB == 3) {
+    mma_16x16(lo, a[0], b[2]);
+    mma_16x16(lo, a[0], b[1]);
   }
   mma_16x16(hi, a[0], b[0]);
 }
@@ -234,28 +250,30 @@ __device__ __forceinline__ void store_out_item(float* C, int ldc, int m0, int n0
 constexpr int kFwdGroup = 2, kFwdBlocksPerSM = 4;
 constexpr int kBwdGroup = 4, kBwdBlocksPerSM = 2;
 
-// C = A . B over an mblocks x nblocks grid of m16 x n16 blocks, each operand
-// held in kS planes (a_plane, b_plane elements apart). `op` is the banded
-// operand (A if kBandOfA, else B, stored NK); its op.kb-wide window depends
-// only on its own 16-row block. A warp takes one band block and up to kG
-// blocks of the other operand: per K-block the band fragment loads once and
-// serves the group. epi(m0, n0, acc) stores a block.
-template <int kS, int kG, bool kKN, bool kBandOfA, typename Epilogue>
+// C = A . B over an mblocks x nblocks grid of m16 x n16 blocks, A held in kSA
+// planes and B in kSB (a_plane, b_plane elements apart), by a block of kNW
+// warps. `op` is the banded operand (A if kBandOfA, else B, stored NK); its
+// op.kb-wide window depends only on its own 16-row block. A warp takes one
+// band block and up to kG blocks of the other operand: per K-block the band
+// fragment loads once and serves the group. epi(m0, n0, acc) stores a block.
+template <int kSA, int kSB, int kG, bool kKN, bool kBandOfA, int kNW = kWarps,
+          typename Epilogue>
 __device__ __forceinline__ void product(const bf16* A, int lda, int a_plane, const bf16* B,
                                         int ldb, int b_plane, int mblocks, int nblocks,
                                         const int* s_win, const OpRef& op, Epilogue epi) {
+  constexpr int kSF = kBandOfA ? kSA : kSB, kSO = kBandOfA ? kSB : kSA;  // band, other
   const int bands = kBandOfA ? mblocks : nblocks, others = kBandOfA ? nblocks : mblocks;
   const int groups = (others + kG - 1) / kG;
-  for (int item = threadIdx.x >> 5; item < bands * groups; item += kWarps) {
+  for (int item = threadIdx.x >> 5; item < bands * groups; item += kNW) {
     const int band = item / groups, g0 = (item - band * groups) * kG;
     const int count = min(kG, others - g0);
     const int k0 = 16 * s_win[op.win + band];
     float acc[kG][2][4] = {}, low[kG][2][4] = {};
     for (int kb = 0; kb < op.kb; ++kb) {
       const int k = k0 + 16 * kb;
-      uint32_t fixed[kS][4], other[kS][4];
+      uint32_t fixed[kSF][4], other[kSO][4];
 #pragma unroll
-      for (int s = 0; s < kS; ++s) {
+      for (int s = 0; s < kSF; ++s) {
         if (kBandOfA)
           ldsm_x4(fixed[s], a_frag(A + s * a_plane, lda, 16 * band, k));
         else
@@ -265,23 +283,23 @@ __device__ __forceinline__ void product(const bf16* A, int lda, int a_plane, con
       for (int g = 0; g < kG; ++g) {
         if (g < count) {
 #pragma unroll
-          for (int s = 0; s < kS; ++s) {
+          for (int s = 0; s < kSO; ++s) {
             if (kBandOfA)
               ldsm_b<kKN>(other[s], b_frag<kKN>(B + s * b_plane, ldb, k, 16 * (g0 + g)));
             else
               ldsm_x4(other[s], a_frag(A + s * a_plane, lda, 16 * (g0 + g), k));
           }
-          if (kBandOfA)
-            mma_parts<kS>(acc[g], low[g], fixed, other);
+          if constexpr (kBandOfA)
+            mma_parts<kSA, kSB>(acc[g], low[g], fixed, other);
           else
-            mma_parts<kS>(acc[g], low[g], other, fixed);
+            mma_parts<kSA, kSB>(acc[g], low[g], other, fixed);
         }
       }
     }
 #pragma unroll
     for (int g = 0; g < kG; ++g) {
       if (g < count) {
-        if constexpr (kS > 1) {
+        if constexpr (kSA * kSB > 1) {
 #pragma unroll
           for (int j = 0; j < 2; ++j)
 #pragma unroll
@@ -384,15 +402,23 @@ __device__ __forceinline__ void load_ops(bf16* s_ops, int* s_win, const bf16* op
   for (int i = threadIdx.x; i < n_win; i += blockDim.x) s_win[i] = win[i];
 }
 
+// The bf16 parts of a patch of maps of type T whose operators and stages
+// take kS: a bf16 patch is exact in one.
+template <typename T, int kS>
+__host__ __device__ constexpr int patch_parts() {
+  return sizeof(T) == 2 ? 1 : kS;
+}
+
 // Byte offsets of the shared-memory regions, and the total. x (d): two patch
-// buffers for kS = 1, else the three planes of one patch and its raw f32
-// buffer (raw, raw_d). The stages take kS planes of *_plane elements each.
+// buffers for patches in one part, else the three planes of one patch and its
+// raw f32 buffer (raw, raw_d). The stages take kS planes of *_plane elements
+// each.
 struct FwdSmem {
   int win, ops, x, raw, t, z, total;
   int x_elems, t_plane, z_plane;
 };
 
-template <int kS>
+template <int kS, int kSX>
 __host__ __device__ inline FwdSmem fwd_smem(const FwdParams& p) {
   FwdSmem s;
   s.win = 0;
@@ -400,29 +426,31 @@ __host__ __device__ inline FwdSmem fwd_smem(const FwdParams& p) {
   s.x = s.ops + align16(kS * p.ops_elems * 2);
   const int x_bytes = align16(p.pp * ld_of(p.pp) * 2);
   s.x_elems = x_bytes / 2;
-  s.raw = s.x + (kS == 1 ? 2 : kS) * x_bytes;
-  s.t = s.raw + (kS == 1 ? 0 : align16(p.pp * p.pp * 4));
+  s.raw = s.x + (kSX == 1 ? 2 : kSX) * x_bytes;
+  s.t = s.raw + (kSX == 1 ? 0 : align16(p.pp * p.pp * 4));
   // t1 [rp][ld(pp)], then t3 [rp][ld(T)]
-  const int t_bytes = align16(lvg::imax(p.rp * ld_of(p.pp), p.rp * ld_of(p.tile)) * 2);
+  const int t_bytes = align16(imax(p.rp * ld_of(p.pp), p.rp * ld_of(p.tile)) * 2);
   s.t_plane = t_bytes / 2;
   s.z = s.t + kS * t_bytes;
   // Z [rp][ld(rp)], then the output tile [T][ld(T)] in the maps' type.
-  const int z_bytes = align16(lvg::imax(p.rp * ld_of(p.rp), p.tile * ld_of(p.tile)) * 2);
+  const int z_bytes = align16(imax(p.rp * ld_of(p.rp), p.tile * ld_of(p.tile)) * 2);
   s.z_plane = z_bytes / 2;
   s.total = s.z + kS * z_bytes;
   return s;
 }
 
-// K1 (T = bf16, kS = 1) and K3a (bf16, or f32 with kS = 3): one launch's
-// walk over the (plane, tile) items of x [planes, in_h, in_w] -> y.
-template <typename T, int kS, int kG>
+// K1 (T = bf16, kS = 1), K3a (bf16, or f32 with kS = 3) and K4/K5 (bf16 or
+// f32, kS = 3): one launch's walk, by blocks of kNW warps, over the
+// (plane, tile) items of x [planes, in_h, in_w] -> y.
+template <typename T, int kS, int kG, int kNW = kWarps>
 __device__ __forceinline__ void fwd_tc(const T* __restrict__ x, T* __restrict__ y,
                                        const bf16* __restrict__ ops,
                                        const int* __restrict__ win, const FwdParams& p,
                                        float gain, float slope, float clamp) {
-  static_assert(kS == 3 || sizeof(T) == 2, "bf16 maps take one part, f32 maps three");
+  static_assert(kS == 3 || sizeof(T) == 2, "f32 maps take three parts");
+  constexpr int kSX = patch_parts<T, kS>();
   extern __shared__ __align__(16) unsigned char smem[];
-  const FwdSmem L = fwd_smem<kS>(p);
+  const FwdSmem L = fwd_smem<kS, kSX>(p);
   int* s_win = reinterpret_cast<int*>(smem + L.win);
   bf16* s_ops = reinterpret_cast<bf16*>(smem + L.ops);
   bf16* s_x = reinterpret_cast<bf16*>(smem + L.x);  // two patch buffers, or three planes
@@ -447,7 +475,7 @@ __device__ __forceinline__ void fwd_tc(const T* __restrict__ x, T* __restrict__ 
     const int ty = t / tiles_x, tx = t - ty * tiles_x;
     const T* src = x + (size_t)plane * p.in_h * p.in_w;
     const int r0 = ty * p.step + p.base_y, c0 = tx * p.step + p.base_x;
-    if constexpr (kS == 1)
+    if constexpr (kSX == 1)
       load_patch(s_x + buf * x_elems, ld_x, src, r0, c0, p.pp, p.in_h, p.in_w, p.aligned);
     else
       load_patch(s_raw, src, r0, c0, p.pp, p.in_h, p.in_w);
@@ -457,7 +485,7 @@ __device__ __forceinline__ void fwd_tc(const T* __restrict__ x, T* __restrict__ 
 
   for (int tile = blockIdx.x, it = 0; tile < total; tile += gridDim.x, ++it) {
     const bf16* xs;
-    if constexpr (kS == 1) {
+    if constexpr (kSX == 1) {
       if (tile + gridDim.x < total) load((it + 1) & 1, tile + gridDim.x);
       cp_async_commit();
       cp_async_wait_prev();
@@ -495,20 +523,20 @@ __device__ __forceinline__ void fwd_tc(const T* __restrict__ x, T* __restrict__ 
     };
     const int rb = p.rp / 16, pb = p.pp / 16, tb = T_ / 16;
     // t1 = Au . X  [rp][pp]
-    product<kS, kG, true, true>(au_y, p.au_y.ld, ops_plane, xs, ld_x, x_elems, rb, pb, s_win,
-                                p.au_y, store_t1);
+    product<kS, kSX, kG, true, true, kNW>(au_y, p.au_y.ld, ops_plane, xs, ld_x, x_elems, rb,
+                                          pb, s_win, p.au_y, store_t1);
     __syncthreads();
     // Z = act(t1 . Bu^T)  [rp][rp]
-    product<kS, kG, false, false>(s_t, ld_t1, t_plane, au_x, p.au_x.ld, ops_plane, rb, rb,
-                                  s_win, p.au_x, store_z);
+    product<kS, kS, kG, false, false, kNW>(s_t, ld_t1, t_plane, au_x, p.au_x.ld, ops_plane,
+                                           rb, rb, s_win, p.au_x, store_z);
     __syncthreads();
     // t3 = Z . Bd^T  [rp][T], over t1's storage
-    product<kS, kG, false, false>(s_z, ld_z, z_plane, ad_x, p.ad_x.ld, ops_plane, rb, tb,
-                                  s_win, p.ad_x, store_t3);
+    product<kS, kS, kG, false, false, kNW>(s_z, ld_z, z_plane, ad_x, p.ad_x.ld, ops_plane,
+                                           rb, tb, s_win, p.ad_x, store_t3);
     __syncthreads();
     // out = Ad . t3  [T][T], over Z's storage
-    product<kS, kG, true, true>(ad_y, p.ad_y.ld, ops_plane, s_t, ld_t, t_plane, tb, tb, s_win,
-                                p.ad_y, store_out);
+    product<kS, kS, kG, true, true, kNW>(ad_y, p.ad_y.ld, ops_plane, s_t, ld_t, t_plane, tb,
+                                         tb, s_win, p.ad_y, store_out);
     __syncthreads();
     const int plane = tile / per_plane, t = tile - plane * per_plane;
     const int ty = t / tiles_x, tx = t - ty * tiles_x;
@@ -537,13 +565,13 @@ __host__ __device__ inline BwdSmem bwd_smem(const BwdParams& p) {
   s.raw_d = s.raw_x + (kS == 1 ? 0 : align16(p.px * p.px * 4));
   s.t = s.raw_d + (kS == 1 ? 0 : align16(p.pd * p.pd * 4));
   // t1 [rp][ld(px)], then dt1 [rp][ld(T)]
-  const int t_bytes = align16(lvg::imax(p.rp * ld_of(p.px), p.rp * ld_of(p.tile)) * 2);
+  const int t_bytes = align16(imax(p.rp * ld_of(p.px), p.rp * ld_of(p.tile)) * 2);
   s.t_plane = t_bytes / 2;
   s.s = s.t + kS * t_bytes;  // s1 [rp][ld(pd)]
   const int s_bytes = align16(p.rp * ld_of(p.pd) * 2);
   s.s_plane = s_bytes / 2;
   s.u = s.s + kS * s_bytes;  // dU [rp][ld(rp)], then dX [T][ld(T)] in the maps' type
-  const int u_bytes = align16(lvg::imax(p.rp * ld_of(p.rp), p.tile * ld_of(p.tile)) * 2);
+  const int u_bytes = align16(imax(p.rp * ld_of(p.rp), p.tile * ld_of(p.tile)) * 2);
   s.u_plane = u_bytes / 2;
   s.total = s.u + kS * u_bytes;
   return s;
@@ -555,7 +583,7 @@ __device__ __forceinline__ void bwd_tc(const T* __restrict__ x, const T* __restr
                                        T* __restrict__ dx, const bf16* __restrict__ ops,
                                        const int* __restrict__ win, const BwdParams& p,
                                        float gain, float slope, float clamp, int has_clamp) {
-  static_assert(kS == 3 || sizeof(T) == 2, "bf16 maps take one part, f32 maps three");
+  static_assert(kS == (sizeof(T) == 2 ? 1 : 3), "bf16 maps take one part, f32 maps three");
   extern __shared__ __align__(16) unsigned char smem[];
   const BwdSmem L = bwd_smem<kS>(p);
   int* s_win = reinterpret_cast<int*>(smem + L.win);
@@ -624,14 +652,14 @@ __device__ __forceinline__ void bwd_tc(const T* __restrict__ x, const T* __restr
     }
     const int rb = p.rp / 16, xb = p.px / 16, db = p.pd / 16, tb = T_ / 16;
     // t1 = Au . X  [rp][px]  and  s1 = Ad^T . dY  [rp][pd]
-    product<kS, kG, true, true>(au_y, p.au_y.ld, ops_plane, xs, ld_x, x_elems, rb, xb, s_win,
-                                p.au_y, [&](int m0, int n0, const float (&c)[2][4]) {
-                                  store_item<kS>(s_t, ld_x, t_plane, m0, n0, c);
-                                });
-    product<kS, kG, true, true>(adt_y, p.adt_y.ld, ops_plane, ds, ld_d, d_elems, rb, db, s_win,
-                                p.adt_y, [&](int m0, int n0, const float (&c)[2][4]) {
-                                  store_item<kS>(s_s, ld_d, s_plane, m0, n0, c);
-                                });
+    product<kS, kS, kG, true, true>(au_y, p.au_y.ld, ops_plane, xs, ld_x, x_elems, rb, xb,
+                                    s_win, p.au_y, [&](int m0, int n0, const float (&c)[2][4]) {
+                                      store_item<kS>(s_t, ld_x, t_plane, m0, n0, c);
+                                    });
+    product<kS, kS, kG, true, true>(adt_y, p.adt_y.ld, ops_plane, ds, ld_d, d_elems, rb, db,
+                                    s_win, p.adt_y, [&](int m0, int n0, const float (&c)[2][4]) {
+                                      store_item<kS>(s_s, ld_d, s_plane, m0, n0, c);
+                                    });
     __syncthreads();
     // dU = (s1 . Bd) * act'(t1 . Bu^T)  [rp][rp]: U and dZ of one item side by
     // side in one warp, so U never leaves registers.
@@ -656,11 +684,11 @@ __device__ __forceinline__ void bwd_tc(const T* __restrict__ x, const T* __restr
 #pragma unroll
             for (int s = 0; s < kS; ++s)
               ldsm_x4(a[s], a_frag(s_t + s * t_plane, ld_x, 16 * (g0 + g), ku + 16 * kb));
-            mma_parts<kS>(u[g], u_lo[g], a, bu);
+            mma_parts<kS, kS>(u[g], u_lo[g], a, bu);
 #pragma unroll
             for (int s = 0; s < kS; ++s)
               ldsm_x4(a[s], a_frag(s_s + s * s_plane, ld_d, 16 * (g0 + g), kz + 16 * kb));
-            mma_parts<kS>(dz[g], dz_lo[g], a, bz);
+            mma_parts<kS, kS>(dz[g], dz_lo[g], a, bz);
           }
         }
       }
@@ -688,17 +716,17 @@ __device__ __forceinline__ void bwd_tc(const T* __restrict__ x, const T* __restr
     }
     __syncthreads();
     // dt1 = dU . Bu  [rp][T], over t1's storage
-    product<kS, kG, false, false>(s_u, ld_u, u_plane, aut_x, p.aut_x.ld, ops_plane, rb, tb,
-                                  s_win, p.aut_x, [&](int m0, int n0, const float (&c)[2][4]) {
-                                    store_item<kS>(s_t, ld_t, t_plane, m0, n0, c);
-                                  });
+    product<kS, kS, kG, false, false>(s_u, ld_u, u_plane, aut_x, p.aut_x.ld, ops_plane, rb, tb,
+                                      s_win, p.aut_x, [&](int m0, int n0, const float (&c)[2][4]) {
+                                        store_item<kS>(s_t, ld_t, t_plane, m0, n0, c);
+                                      });
     __syncthreads();
     // dX = Au^T . dt1  [T][T], over dU's storage
     T* s_out = reinterpret_cast<T*>(s_u);
-    product<kS, kG, true, true>(aut_y, p.aut_y.ld, ops_plane, s_t, ld_t, t_plane, tb, tb, s_win,
-                                p.aut_y, [&](int m0, int n0, const float (&c)[2][4]) {
-                                  store_out_item(s_out, ld_t, m0, n0, c);
-                                });
+    product<kS, kS, kG, true, true>(aut_y, p.aut_y.ld, ops_plane, s_t, ld_t, t_plane, tb, tb,
+                                    s_win, p.aut_y, [&](int m0, int n0, const float (&c)[2][4]) {
+                                      store_out_item(s_out, ld_t, m0, n0, c);
+                                    });
     __syncthreads();
     const int plane = tile / per_plane, t = tile - plane * per_plane;
     const int ty = t / tiles_x, tx = t - ty * tiles_x;
@@ -707,11 +735,11 @@ __device__ __forceinline__ void bwd_tc(const T* __restrict__ x, const T* __restr
   }
 }
 
-// A persistent grid: as many blocks as fit on every SM at this footprint,
-// never more than there are tiles.
+// A persistent grid of `threads`-thread blocks: as many as fit on every SM at
+// this footprint, never more than there are tiles.
 template <typename Kernel, typename... Args>
-cudaError_t launch_persistent(Kernel kernel, long long tiles, int smem, cudaStream_t stream,
-                              Args... args) {
+cudaError_t launch_persistent(Kernel kernel, long long tiles, int smem, int threads,
+                              cudaStream_t stream, Args... args) {
   if (tiles < 1) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          smem);
@@ -720,12 +748,12 @@ cudaError_t launch_persistent(Kernel kernel, long long tiles, int smem, cudaStre
   if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
     return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem)) !=
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem)) !=
       cudaSuccess)
     return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const long long grid = tiles < (long long)sms * per_sm ? tiles : (long long)sms * per_sm;
-  kernel<<<(unsigned)grid, kThreads, smem, stream>>>(args...);
+  kernel<<<(unsigned)grid, threads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
@@ -739,8 +767,8 @@ bool read_params(Params& p, const int* params, int n_params) {
 // The C entries' checks and launch. x [planes, in_h, in_w] -> y [planes,
 // out_h, out_w] in type T, contiguous; ops: kS planes of the operator blocks
 // (bf16), win: their K-windows (int32), both on the device; params: host ints
-// in FwdParams' order. clamp: +inf for none.
-template <typename T, int kS, typename Kernel>
+// in FwdParams' order. clamp: +inf for none. Blocks of kNW warps.
+template <typename T, int kS, int kNW = kWarps, typename Kernel>
 int launch_fwd_tc(Kernel kernel, const void* x, void* y, const void* ops, const void* win,
                   const int* params, int n_params, float gain, float slope, float clamp,
                   void* stream) {
@@ -750,8 +778,8 @@ int launch_fwd_tc(Kernel kernel, const void* x, void* y, const void* ops, const 
   const long long tiles = (long long)p.planes * ((p.out_h + p.tile - 1) / p.tile) *
                           ((p.out_w + p.tile - 1) / p.tile);
   if (tiles > INT_MAX) return cudaErrorInvalidConfiguration;
-  return launch_persistent(kernel, tiles, fwd_smem<kS>(p).total,
-                           static_cast<cudaStream_t>(stream), static_cast<const T*>(x),
+  return launch_persistent(kernel, tiles, fwd_smem<kS, patch_parts<T, kS>()>(p).total,
+                           32 * kNW, static_cast<cudaStream_t>(stream), static_cast<const T*>(x),
                            static_cast<T*>(y), static_cast<const bf16*>(ops),
                            static_cast<const int*>(win), p, gain, slope, clamp);
 }
@@ -770,7 +798,7 @@ int launch_bwd_tc(Kernel kernel, const void* x, const void* dy, void* dx, const 
   const long long tiles = (long long)p.planes * ((p.in_h + p.tile - 1) / p.tile) *
                           ((p.in_w + p.tile - 1) / p.tile);
   if (tiles > INT_MAX) return cudaErrorInvalidConfiguration;
-  return launch_persistent(kernel, tiles, bwd_smem<kS>(p).total,
+  return launch_persistent(kernel, tiles, bwd_smem<kS>(p).total, kThreads,
                            static_cast<cudaStream_t>(stream), static_cast<const T*>(x),
                            static_cast<const T*>(dy), static_cast<T*>(dx),
                            static_cast<const bf16*>(ops), static_cast<const int*>(win), p, gain,
@@ -778,3 +806,8 @@ int launch_bwd_tc(Kernel kernel, const void* x, const void* dy, void* dx, const 
 }
 
 }  // namespace
+
+// The message of a C entry's cudaError_t.
+extern "C" const char* lvg_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -1,7 +1,7 @@
 """ctypes binding of the native batched JPEG decoder (`csrc/jpeg_decoder.cpp`,
 g++ and libjpeg), built at import into `long_video_gan_tpu_torch/_build/`,
 named by a hash of the source and the flags. Importing raises where it cannot
-be built; `jpeg.py` then decodes with PIL."""
+be built (with the compiler's output); `jpeg.py` then decodes with PIL."""
 
 from __future__ import annotations
 
@@ -28,9 +28,12 @@ def build() -> str:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # Temp name + rename: atomic against several processes building at once.
     tmp = BUILD_DIR / f".{out.name}.{os.getpid()}.tmp"
+    cmd = ["g++", *GXX_FLAGS, str(src), "-o", str(tmp), *GXX_LIBS]
     try:
-        subprocess.run(["g++", *GXX_FLAGS, str(src), "-o", str(tmp), *GXX_LIBS], check=True,
-                       capture_output=True)
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed ({proc.returncode}): {' '.join(cmd)}\n"
+                               f"{proc.stdout}{proc.stderr}")
         os.replace(tmp, out)
     finally:
         tmp.unlink(missing_ok=True)

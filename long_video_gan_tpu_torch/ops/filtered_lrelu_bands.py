@@ -442,14 +442,27 @@ def pack_ops(ops: dict, names: tuple, widths: dict):
     return index, torch.tensor(wins, dtype=torch.int32), where
 
 
-def fwd_executed_macs(plan: FwdPlan, widths: dict, tiles: int) -> int:
+def partial_products(a_parts: int, b_parts: int) -> int:
+    """bf16 partial products the tensor-core kernels take for a product of
+    operands held in `a_parts` and `b_parts` bf16 parts (one or three;
+    csrc/filtered_lrelu_tc.cuh `mma_parts`): those above 2**-24 of the
+    operands' scale."""
+    return {1: 1, 3: 3, 9: 6}[a_parts * b_parts]
+
+
+def fwd_executed_macs(plan: FwdPlan, widths: dict, tiles: int, parts: int = 1,
+                      x_parts: Optional[int] = None) -> int:
     """Multiply-adds K1's tensor cores execute for `tiles` tiles: 16x16x16
-    per K-block of each m16 x n16 item, `widths[op]` blocks per window."""
+    per K-block of each m16 x n16 item, `widths[op]` blocks per window, once
+    per partial product of operators and stages held in `parts` bf16 parts
+    and patches in `x_parts` (default `parts`)."""
     w = widths
-    per = MMA_K * (plan.rp * w["au_y"] * plan.pp           # t1 = Au . X
-                   + plan.rp * w["au_x"] * plan.rp         # U = t1 . Bu^T
-                   + plan.rp * w["ad_x"] * plan.tile       # t3 = Z . Bd^T
-                   + plan.tile * w["ad_y"] * plan.tile)    # out = Ad . t3
+    x_passes = partial_products(parts, parts if x_parts is None else x_parts)
+    per = MMA_K * (x_passes * plan.rp * w["au_y"] * plan.pp       # t1 = Au . X
+                   + partial_products(parts, parts)
+                   * (plan.rp * w["au_x"] * plan.rp               # U = t1 . Bu^T
+                      + plan.rp * w["ad_x"] * plan.tile           # t3 = Z . Bd^T
+                      + plan.tile * w["ad_y"] * plan.tile))       # out = Ad . t3
     return per * tiles
 
 

@@ -48,9 +48,9 @@ FWD_OPS = ("au_y", "au_x", "ad_y", "ad_x")
 BWD_OPS = ("au_y", "au_x", "adt_y", "adt_x", "aut_y", "aut_x")
 
 
-# Geometry arguments of every filtered_lrelu kernel's C function: planes,
-# in_h, in_w, out_h, out_w, up, down, px0, px1, py0, py1, taps, fu_taps,
-# fd_taps, gain, slope, clamp.
+# Geometry arguments of the f32 kernels' C functions (filtered_lrelu_fwd.cu,
+# _bwd.cu): planes, in_h, in_w, out_h, out_w, up, down, px0, px1, py0, py1,
+# taps, fu_taps, fd_taps, gain, slope, clamp.
 GEOMETRY_ARGS = ([ctypes.c_int] * 11 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
                  + [ctypes.c_float] * 3)
 
@@ -237,14 +237,17 @@ def tc_params(backward: bool, plan, index: torch.Tensor, windows: torch.Tensor, 
 
 
 def launch_tc_fwd(fn, x: torch.Tensor, y: torch.Tensor, up: int, down: int, geometry,
-                  gain: float, slope: float, clamp: Optional[float], tile: int = TILE) -> int:
-    """Launch the tensor-core forward C function `fn` (K1, K3a) on bias-added
-    `x` into `y` over `tile`-wide tiles, given `kernel_geometry`'s (padding,
-    out_h, out_w, taps, fu taps, fd taps); returns its cudaError_t."""
+                  gain: float, slope: float, clamp: Optional[float], tile: int = TILE,
+                  parts: Optional[int] = None) -> int:
+    """Launch the tensor-core forward C function `fn` (K1, K3a, K4, K5) on
+    bias-added `x` into `y` over `tile`-wide tiles, given `kernel_geometry`'s
+    (padding, out_h, out_w, taps, fu taps, fd taps), with the operators in
+    `parts` bf16 parts (default `tc_parts(x)`; K4/K5 take 3 on either map
+    type); returns its cudaError_t."""
     pad, out_h, out_w, taps, n_fu, n_fd = geometry
     n, c, h, w = x.shape
     plan, index, windows, where = _tc_plan(False, up, down, pad, n_fu, n_fd, x.device, tile)
-    ops = _tc_ops(index, taps, tc_parts(x))
+    ops = _tc_ops(index, taps, parts or tc_parts(x))
     params = tc_params(False, plan, index, windows, where, (n * c, h, w, out_h, out_w),
                        (_aligned(x, w, plan.step),))
     return fn(x.data_ptr(), y.data_ptr(), ops.data_ptr(), windows.data_ptr(), *_c_ints(params),

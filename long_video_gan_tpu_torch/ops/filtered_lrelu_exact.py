@@ -1,15 +1,16 @@
 """The f32-exact filtered_lrelu forward: the Hopper kernel K4 of
-csrc/filtered_lrelu_exact.cu (the four banded products with every stage kept
-in f32, in FMAs on the CUDA cores), reached through
-`filtered_lrelu(impl="pallas")`.
+csrc/filtered_lrelu_exact_tc.cu (the four banded products with every operand
+and stage in three bf16 parts on the tensor cores, f32 stages whatever the
+maps' type), reached through `filtered_lrelu(impl="pallas")`.
 
 Counterpart of `long_video_gan_tpu/ops/pallas/filtered_lrelu_kernel.py`
 `filtered_lrelu_pallas`: the maps cast to f32, every product and sum in f32,
 the output in the maps' type. Forward only: the JAX kernel's `pallas_call`
-has no gradient, and here a gradient through it raises. The JAX kernel also
-fails on a top crop of `up` rows or more (`_h_band_matrices` makes its top
-pad ceil(py0 / up) negative, which `jnp.pad` refuses); the port mirrors that
-limit with a ValueError and computes every padding the JAX kernel takes.
+has no gradient, and here a gradient through it raises. The port mirrors
+the JAX kernel's limits with a ValueError: a top crop of `up` rows or more
+(`_h_band_matrices` makes its top pad ceil(py0 / up) negative, which
+`jnp.pad` refuses), and an `up` that does not divide 16 * down (its band
+matrices assert it). It computes every other padding and factor.
 
 A CUDA tensor launches K4 or raises; a CPU tensor takes its plain version,
 `exact_plain`: the composed op in f32, cast to the maps' type. Nothing
@@ -27,30 +28,39 @@ import torch
 
 from ..utils.nvcc import load_library
 from .filtered_lrelu import filtered_lrelu_composed
-from .filtered_lrelu_cuda import GEOMETRY_ARGS, check_input, kernel_geometry, raise_on_error
+from .filtered_lrelu_cuda import (TC_FWD_ARGS, TILE, check_input, kernel_geometry,
+                                  launch_tc_fwd, raise_on_error)
 from .upfirdn2d import Filter, parse_padding
 
-SOURCE = "long_video_gan_tpu_torch/csrc/filtered_lrelu_exact.cu"
+SOURCE = "long_video_gan_tpu_torch/csrc/filtered_lrelu_exact_tc.cu"
 
 # Kernel launches since the last reset (the caller sets it to 0).
 launches = 0
 
+# bf16 parts of every operand and stage, on either map type.
+PARTS = 3
+
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """Build (at first use) and load K4."""
-    args = [ctypes.c_void_p] * 2 + GEOMETRY_ARGS + [ctypes.c_void_p]
-    return load_library("filtered_lrelu_exact.cu", {"lvg_exact_fwd_f32": args,
-                                                    "lvg_exact_fwd_bf16": args})
+    """Build (at first use) and load K4 and K5, one source."""
+    return load_library("filtered_lrelu_exact_tc.cu", {
+        f"lvg_{kernel}_tc_fwd_{suffix}": TC_FWD_ARGS
+        for kernel in ("exact", "polyphase") for suffix in ("bf16", "f32")})
 
 
-def check_limits(entry: str, fu: Filter, fd: Filter, up: int, padding) -> None:
+def check_limits(entry: str, fu: Filter, fd: Filter, up: int, down: int, padding) -> None:
     """Raise ValueError where the JAX package's K4 and K5 kernels fail: a
-    2-D filter, or a top crop of `up` rows or more."""
+    2-D filter, an `up` that does not divide 16 * down, or a top crop of
+    `up` rows or more."""
     for f in (fu, fd):
         if f is not None and f.ndim != 1:
             raise ValueError(f"{entry} takes separable (1-D) filters, got shape "
                              f"{tuple(f.shape)}")
+    if (16 * down) % up:
+        raise ValueError(f"{entry}: up={up} must divide 16 * down = {16 * down} (the JAX "
+                         f"package's kernel asserts it in `_h_band_matrices`, "
+                         f"ops/pallas/filtered_lrelu_kernel.py)")
     py0 = parse_padding(padding)[2]
     if -(-py0 // up) < 0:
         raise ValueError(
@@ -90,7 +100,7 @@ def filtered_lrelu_exact(x: torch.Tensor, fu: Filter = None, fd: Filter = None,
                          clamp: Optional[float] = None) -> torch.Tensor:
     """filtered_lrelu on NCHW maps with separable filters, forward only."""
     entry = "filtered_lrelu impl='pallas' (K4)"
-    check_limits(entry, fu, fd, int(up), padding)
+    check_limits(entry, fu, fd, int(up), int(down), padding)
     if b is not None:
         x = x + b.reshape(1, -1, 1, 1).to(x.dtype)
     args = (fu, fd, int(up), int(down), parse_padding(padding), float(gain), float(slope),
@@ -98,25 +108,22 @@ def filtered_lrelu_exact(x: torch.Tensor, fu: Filter = None, fd: Filter = None,
     return ForwardOnly.apply(x, exact_plain, exact_fwd_cuda, entry, args)
 
 
-def launch_fwd(library, name: str, x: torch.Tensor, fu: Filter, fd: Filter, up: int,
-               down: int, padding, gain: float, slope: float,
-               clamp: Optional[float]) -> torch.Tensor:
-    """Launch the forward kernel `name`_{f32,bf16} of `library()` on
-    bias-added NCHW `x` (f32 or bf16, contiguous, on a CUDA device) with f32
-    taps; returns a new tensor of x's dtype."""
+def launch_fwd(kernel: str, x: torch.Tensor, fu: Filter, fd: Filter, up: int, down: int,
+               padding, gain: float, slope: float, clamp: Optional[float]) -> torch.Tensor:
+    """Launch `kernel` ("exact": K4, "polyphase": K5) of `library()` on
+    bias-added NCHW `x` (f32 or bf16, contiguous, on a CUDA device): the
+    tensor-core forward over 32-wide tiles (T * down is a multiple of every
+    `up` the JAX kernels take), operators in PARTS bf16 parts; returns a new
+    tensor of x's dtype."""
     check_input(x, "tensor")
-    (px0, px1, py0, py1), out_h, out_w, taps, n_fu, n_fd = kernel_geometry(x, fu, fd, up, down,
-                                                                            padding)
-    n, c, h, w = x.shape
-    y = torch.empty((n, c, out_h, out_w), dtype=x.dtype, device=x.device)
+    geometry = kernel_geometry(x, fu, fd, up, down, padding)
+    y = torch.empty(tuple(x.shape[:2]) + geometry[1:3], dtype=x.dtype, device=x.device)
     lib = library()
-    fn = getattr(lib, f"{name}_bf16" if x.dtype == torch.bfloat16 else f"{name}_f32")
+    suffix = "bf16" if x.dtype == torch.bfloat16 else "f32"
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), y.data_ptr(), n * c, h, w, out_h, out_w, up, down, px0, px1, py0,
-                py1, taps.data_ptr(), n_fu, n_fd, float(gain), float(slope),
-                math.inf if clamp is None else float(clamp), stream)
-    raise_on_error(lib, rc, name)
+        rc = launch_tc_fwd(getattr(lib, f"lvg_{kernel}_tc_fwd_{suffix}"), x, y, up, down,
+                           geometry, gain, slope, clamp, TILE, PARTS)
+    raise_on_error(lib, rc, kernel)
     return y
 
 
@@ -124,6 +131,6 @@ def exact_fwd_cuda(x: torch.Tensor, fu: Filter, fd: Filter, up: int, down: int, 
                    gain: float, slope: float, clamp: Optional[float]) -> torch.Tensor:
     """Launch K4 on bias-added NCHW `x`."""
     global launches
-    y = launch_fwd(library, "lvg_exact_fwd", x, fu, fd, up, down, padding, gain, slope, clamp)
+    y = launch_fwd("exact", x, fu, fd, up, down, padding, gain, slope, clamp)
     launches += 1
     return y

@@ -37,8 +37,10 @@ def find_nvcc() -> str:
                        "the CUDA kernels build only where the CUDA toolkit is installed")
 
 
-def build_library(source_name: str) -> Path:
-    """Compile `csrc/<source_name>` unless a library of the same hash exists."""
+def build_library(source_name: str | Path) -> Path:
+    """Compile `csrc/<source_name>` (or the source at an absolute path, which
+    may include the `csrc/` headers) unless a library of the same hash
+    exists."""
     src = CSRC_DIR / source_name
     # The shared headers count too: a source that includes an edited header
     # rebuilds.
@@ -51,7 +53,7 @@ def build_library(source_name: str) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # Temp name + rename: atomic against several processes building at once.
     tmp = BUILD_DIR / f".{out.name}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp), str(src)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
@@ -64,10 +66,11 @@ def build_library(source_name: str) -> Path:
     return out
 
 
-def load_library(source_name: str, signatures: dict[str, list]) -> ctypes.CDLL:
-    """Build and load `csrc/<source_name>`; each named C function of
-    `signatures` takes those ctypes argument types and returns a cudaError_t
-    (an int), which `lvg_cuda_error_string` turns into its message."""
+def load_library(source_name: str | Path, signatures: dict[str, list]) -> ctypes.CDLL:
+    """Build and load `csrc/<source_name>` (as `build_library`); each named C
+    function of `signatures` takes those ctypes argument types and returns a
+    cudaError_t (an int), which `lvg_cuda_error_string` turns into its
+    message."""
     lib = ctypes.CDLL(str(build_library(source_name)))
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

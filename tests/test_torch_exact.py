@@ -143,3 +143,15 @@ def test_kernel_entries_reject_cpu_tensor():
     for fn in (exact.exact_fwd_cuda, polyphase.polyphase_fwd_cuda):
         with pytest.raises(ValueError, match="CUDA tensor"):
             fn(x, FU, FU, 2, 2, 9, 1.4, 0.2, None)
+
+
+def test_up_must_divide_16_down():
+    """K4 raises ValueError where the JAX kernel's `_h_band_matrices`
+    asserts that up divides 16 * down (here up 3, down 1), on a CPU tensor
+    too."""
+    x, b = _inputs((1, 2, 12, 16), seed=15)
+    kw = dict(up=3, down=1, padding=9)
+    with pytest.raises(AssertionError):
+        jax_flr.filtered_lrelu(jnp.asarray(x), FU, FU, jnp.asarray(b), impl="pallas", **kw)
+    with pytest.raises(ValueError, match="divide"):
+        filtered_lrelu(torch.from_numpy(x), FU, FU, torch.from_numpy(b), impl="pallas", **kw)

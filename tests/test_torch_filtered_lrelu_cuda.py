@@ -15,6 +15,7 @@ without jax installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_filtered_lrelu_cuda.py
 """
 
+import copy
 import math
 import os
 import subprocess
@@ -146,11 +147,13 @@ def test_selftest_checks_every_kernel_on_cpu(kernel):
     check = selftest.check_layer(layer, "small", 3, torch.float32, torch.device("cpu"),
                                  torch.Generator().manual_seed(4), kernel=kernel)
     assert check.ok and check.max_abs_err == 0.0, check
-    assert check.tol == {"K3a": 1e-6, "K4": 1e-6}.get(kernel, 1e-4)
+    assert check.tol == {"K3a": 1e-6, "K4": 1e-6, "K5": 1e-6}.get(kernel, 1e-4)
     if kernel == "K3b":
         assert check.flips == 0 and check.beyond_flips_rel_err == 0.0, check
-    bf16_tol = {"K1": 2 ** -7, "K3a": 2 ** -7}.get(kernel, 0.03)
+    # K4 and K5 in bf16: 1e-6 of the scale beyond half an ulp of each element.
+    bf16_tol = {"K1": 2 ** -7, "K3a": 2 ** -7, "K4": 1e-6, "K5": 1e-6}.get(kernel, 0.03)
     assert selftest.KERNELS[kernel].tol(torch.bfloat16) == bf16_tol
+    assert selftest.KERNELS[kernel].bf16_half_ulp == (kernel in ("K4", "K5"))
 
 
 @pytest.mark.parametrize("kernel", ["K1", "K2", "K3a", "K3b"])
@@ -176,14 +179,19 @@ def test_served_layers_of_the_plan(plan_layers):
     assert served["K3a"] == served["K3b"] == list(range(14))
     assert served["K4"] == served["K5"] == [0, 1, 2, 4, 6, 8, 9, 11, 12, 14]
     # L10 at 16 frames: ~25 GFLOP, ~0.49 GB of bf16 maps. bf16 products at
-    # 989 TFLOP/s take ~0.026 ms, so the bytes at 3.35 TB/s bound it; the same
-    # operations in f32 (K4, K5) at 67 TFLOP/s take ~0.38 ms and bound it.
+    # 989 TFLOP/s take ~0.026 ms, so the bytes at 3.35 TB/s bound it (~0.145
+    # ms); the same operations in f32 as K4 and K5 take them, six bf16 passes
+    # on the tensor cores (989/6 TFLOP/s), take ~0.154 ms and bound it (at the
+    # f32 CUDA-core peak of 67 TFLOP/s they would take ~0.38 ms).
     layer = plan_layers[10][1]
     ms, by = selftest.bound(layer, 16, torch.bfloat16, backward=False)
     assert by == "bytes" and 0.13 < ms < 0.16
+    for dtype in (torch.bfloat16, torch.float32):
+        for kernel in ("K4", "K5"):
+            assert selftest.KERNELS[kernel].peak_flops(dtype) == selftest.SPLIT_F32_FLOPS
     ms, by = selftest.bound(layer, 16, torch.bfloat16, backward=False,
-                            op_dtype=torch.float32)
-    assert by == "operations" and 0.3 < ms < 0.45
+                            peak_flops=selftest.KERNELS["K4"].peak_flops(torch.bfloat16))
+    assert by == "operations" and 0.15 < ms < 0.16
 
 
 def _plan_case(layer, idx, planes=8):
@@ -236,6 +244,50 @@ def test_k3a_bar_refuses_unrounded_stages(idx, variant, plan_layers):
     """K3a's bf16 bars, K1's pair, tell it from the same functions at each
     bf16 plan layer, L3's and L10's crops included."""
     _ulp_bars_refuse_unrounded_stages("K3a", idx, variant, plan_layers)
+
+
+def _exact_case(layer, idx, frames=2, planes=4):
+    """A plan layer's seeded bias-added bf16 input on `frames` frames of
+    `planes` planes, its filters and keyword arguments (ToRGB: gain 1, slope
+    1)."""
+    g = torch.Generator().manual_seed(70 + idx)
+    x, fu, fd, kw = selftest._layer_inputs(layer, frames, torch.bfloat16, torch.device("cpu"), g)
+    return x[:, :planes].contiguous(), fu, fd, kw
+
+
+@pytest.mark.parametrize("idx", [4, 6, 8, 9, 11, 12, 14])
+@pytest.mark.parametrize("kernel", ["K4", "K5"])
+def test_exact_bf16_bar_refuses_stage_rounding(kernel, idx, plan_layers):
+    """K4's and K5's bf16 bar (EXACT_F32_TOL of the scale beyond half a bf16
+    ulp of each element) at each bf16 plan layer they serve, on 2 frames of 4
+    planes: the f32 plain value rounded once passes it, with nothing beyond
+    half an ulp; the products with bf16 stages (K3a's function,
+    `banded_fwd_plain` in bf16) fail it at every layer that resamples,
+    though they pass TOLS[bf16], the bar it replaced. At L14 (ToRGB:
+    identity operators, gain 1, slope 1) every stage is exact in bf16, so
+    the two are one function and both pass."""
+    name, layer = plan_layers[idx]
+    x, fu, fd, kw = _exact_case(layer, idx)
+    k = selftest.KERNELS[kernel]
+    tol = k.tol(torch.bfloat16)
+    assert k.bf16_half_ulp and k.f32_reference and tol == selftest.EXACT_F32_TOL
+
+    def plain(s):
+        return k.plain(x[s].float(), fu, fd, **kw)
+
+    def check(out):
+        return selftest._against_plain(name, out, torch.bfloat16, plain, tol, half_ulp=True)
+
+    once = plain(slice(None)).bfloat16()
+    c = check(once)
+    assert c.ok and c.beyond_half_ulp_rel_err == 0.0, c
+    staged = filtered_lrelu_bands.banded_fwd_plain(x, fu, fd, **kw)
+    c = check(staged)
+    if idx == 14:
+        assert torch.equal(staged, once) and c.ok, c
+    else:
+        assert not c.ok and c.beyond_half_ulp_rel_err > 100 * tol, c
+        assert c.rel_err <= selftest.TOLS[torch.bfloat16], c
 
 
 def _k2_bars(x, dy, fu, fd, kw):
@@ -566,13 +618,30 @@ def test_fused_kernels_match_plain(kernel, frames, where, dtype, cuda_device, pl
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["K4", "K5"])
-@pytest.mark.parametrize("where", ["small", "L4"])
+@pytest.mark.parametrize("where", ["small", "L0", "L4", "L14"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_forward_only_kernels_match_plain(kernel, where, dtype, cuda_device, plan_layers):
-    """K4 (f32 bar 1e-6) and K5 at a small up-2 geometry and at L4."""
-    name, layer = _small_layer() if where == "small" else plan_layers[4]
+    """K4 and K5 (f32 bar EXACT_F32_TOL; bf16 EXACT_F32_TOL beyond half an
+    ulp of each element) at a small up-2 geometry, at L0 (31x38, up 2, the
+    f32 head), L4 (40x54, up 2) and L14 (ToRGB: up 1, down 1, no filters, 3
+    channels at 144x256), each in both types."""
+    name, layer = _small_layer() if where == "small" else plan_layers[int(where[1:])]
     gen = torch.Generator().manual_seed(500)
     check = selftest.check_layer(layer, name, 16, dtype, cuda_device, gen, kernel=kernel)
+    assert check.ok, check
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_at_up_4(dtype, cuda_device, plan_layers):
+    """K4 at L3's 31x38 maps and filters (up 4, down 2) with a top crop the
+    JAX kernel takes (py0 = -3 > -up): no plan layer gives K4 up 4, but its
+    entry takes it, and up 4 is where the TPU kernel once miscompiled."""
+    name, layer = plan_layers[3]
+    layer = copy.copy(layer)
+    layer.padding = [-6, -9, -3, -9]
+    gen = torch.Generator().manual_seed(501)
+    check = selftest.check_layer(layer, name, 16, dtype, cuda_device, gen, kernel="K4")
     assert check.ok, check
 
 

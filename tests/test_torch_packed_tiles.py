@@ -14,13 +14,15 @@
     tile here as csrc/filtered_lrelu_tc.cu contracts them (only the K-blocks
     of each window, at the kernels' fixed window widths; patches zero outside
     the map, ragged edge tiles cropped),
-    reproduce the plain versions at every L0-L13 geometry (L0-L2, the f32
-    head layers, are K3's only): f32 to 1e-5, bf16 to 2**-8 of the largest
-    output.
+    reproduce the plain versions at every L0-L14 geometry (L0-L2, the f32
+    head layers, are K3's only; L14, the ToRGB identity, K4's and K5's):
+    f32 to 1e-5, bf16 to 2**-8 of the largest output.
 (c) The f32 kernels' three-part bf16 products (`filtered_lrelu_bands.
     split_matmul`), contracted over the same plans at L0-L2, meet K3a's and
-    K3b's f32 bars; one bf16 pass and one TF32 pass do not.
-(d) K3's tiles fit a block's shared memory at every plan geometry.
+    K3b's f32 bars, and with a bf16 patch in one part (K4/K5 on bf16 maps)
+    at L4-L14 K4's and K5's bars; one bf16 pass and one TF32 pass do not.
+(d) K3's, K4's and K5's tiles fit a block's shared memory at every plan
+    geometry they serve.
 """
 
 import importlib
@@ -35,7 +37,8 @@ import torch
 
 from long_video_gan_tpu_torch import selftest
 from long_video_gan_tpu_torch.ops import filtered_lrelu_bands as bands
-from long_video_gan_tpu_torch.ops import filtered_lrelu_cuda, filtered_lrelu_fused
+from long_video_gan_tpu_torch.ops import (filtered_lrelu_cuda, filtered_lrelu_exact,
+                                          filtered_lrelu_fused)
 from long_video_gan_tpu_torch.ops.filtered_lrelu import filtered_lrelu, output_size
 
 jax_flr = importlib.import_module("long_video_gan_tpu.ops.filtered_lrelu")
@@ -69,9 +72,11 @@ def _layer_case(layer, planes, seed, scale=1.0):
     its output gradient, its filters and keyword arguments."""
     rng = np.random.default_rng(seed)
     h, w = layer.in_size[1] + layer.kernel - 1, layer.in_size[0] + layer.kernel - 1
-    fu, fd = layer.up_filter.numpy(), layer.down_filter.numpy()
+    fu, fd = (np.ones(1, np.float32) if f is None else f.numpy()
+              for f in (layer.up_filter, layer.down_filter))
+    gain, slope = (1.0, 1.0) if layer.is_torgb else (math.sqrt(2.0), 0.2)
     kw = dict(up=layer.up_factor, down=layer.down_factor, padding=tuple(layer.padding),
-              gain=math.sqrt(2.0), slope=0.2, clamp=layer.conv_clamp)
+              gain=gain, slope=slope, clamp=layer.conv_clamp)
     x = (rng.standard_normal((1, planes, h, w)) * scale).astype(np.float32)
     oh, ow = output_size(h, w, fu, fd, kw["up"], kw["down"], kw["padding"])
     dy = rng.standard_normal((1, planes, oh, ow)).astype(np.float32)
@@ -212,9 +217,10 @@ def _close(got, want, dtype):
     assert got.shape == want.shape and err <= tol * scale, (err, scale)
 
 
-def _contract(x, dy, fu, fd, kw, mm=torch.matmul):
-    """The forward's and the backward's tile plans of the wrapper contracted
-    on one plane of x [1, 1, H, W] (and dy), every product `mm`."""
+def _contract(x, dy, fu, fd, kw, mm=torch.matmul, backward=True):
+    """The forward's and (`backward`) the backward's tile plans of the
+    wrapper contracted on one plane of x [1, 1, H, W] (and dy), every
+    product `mm`."""
     up, down, pad = kw["up"], kw["down"], kw["padding"]
     taps = filtered_lrelu_cuda.kernel_geometry(x, fu, fd, up, down, pad)[3]
     geometry = (up, down, pad, len(fu), len(fd), torch.device("cpu"))
@@ -227,16 +233,17 @@ def _contract(x, dy, fu, fd, kw, mm=torch.matmul):
 
     out_hw = output_size(x.shape[2], x.shape[3], fu, fd, up, down, pad)
     return (tiled_fwd(x[0], *plan(False), out_hw=out_hw, **act_kw),
-            tiled_bwd(x[0], dy[0], *plan(True), **act_kw))
+            tiled_bwd(x[0], dy[0], *plan(True), **act_kw) if backward else None)
 
 
-@pytest.mark.parametrize("idx", range(14))
+@pytest.mark.parametrize("idx", range(15))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_tile_plans_contract_to_plain(idx, dtype, plan_layers):
-    """The forward's and the backward's tile plans at each layer of the plan
-    that resamples: L0-L2 (f32, K3 only; a 29x36 plane takes two 32-wide
-    tiles across) and the bf16 layers (L3 and L13 crop their padding; every
-    layer has ragged edge tiles)."""
+    """The forward's and the backward's tile plans at each layer of the
+    plan: L0-L2 (f32, K3 only; a 29x36 plane takes two 32-wide tiles
+    across), the bf16 layers that resample (L3 and L13 crop their padding;
+    every layer has ragged edge tiles) and L14 (ToRGB, one-tap identity
+    operators: K4/K5 only)."""
     x, dy, fu, fd, kw = _layer_case(plan_layers[idx][1], 1, seed=20 + idx, scale=2.0)
     x, dy = torch.from_numpy(x).to(dtype), torch.from_numpy(dy).to(dtype)
     fwd, bwd = _contract(x, dy, fu, fd, kw)
@@ -295,6 +302,37 @@ def test_split_products_meet_f32_bars(idx, backward, plan_layers):
             assert c.beyond_flips_rel_err > 1e-4, (name, c)
 
 
+@pytest.mark.parametrize("idx", [4, 6, 8, 9, 11, 12, 14])
+def test_exact_split_products_meet_bars(idx, plan_layers):
+    """K4/K5 on bf16 maps, on one plane at each bf16 geometry they serve,
+    L14's identity included: the forward tile plan contracted with the
+    operators and the f32 stages in three bf16 parts and the bf16 patch
+    exact in them (`split_matmul`: three partial products for t1 = Au . X,
+    six for the others) meets EXACT_F32_TOL against the f32 plain version,
+    and rounded once to bf16 meets their bf16 bar. A single bf16 pass and a
+    single TF32 pass fail the f32 bar at every layer that resamples; at L14
+    (identity operators, gain 1, slope 1) every pass is exact."""
+    x, dy, fu, fd, kw = _layer_case(plan_layers[idx][1], 1, seed=80 + idx, scale=2.0)
+    x = torch.from_numpy(x).bfloat16().float()   # bf16 maps; the stages are f32
+    dy = torch.from_numpy(dy)
+    kernel = selftest.KERNELS["K4"]
+    plain = lambda s: kernel.plain(x[s], fu, fd, **kw)   # noqa: E731
+
+    def check(mm):
+        got = _contract(x, dy, fu, fd, kw, mm, backward=False)[0][None]
+        return got, selftest._against_plain("L", got, torch.float32, plain,
+                                            selftest.EXACT_F32_TOL)
+
+    got, c = check(bands.split_matmul)
+    assert c.ok and kernel.tol(torch.float32) == selftest.EXACT_F32_TOL, c
+    c = selftest._against_plain("L", got.bfloat16(), torch.bfloat16, plain,
+                                kernel.tol(torch.bfloat16), half_ulp=True)
+    assert c.ok, c
+    for name, mm in ONE_PASS.items():
+        _, c = check(mm)
+        assert c.ok == (idx == 14), (name, c)
+
+
 # ---------------------------------------------------------------------------
 # (d) The tensor-core kernels' shared-memory footprints.
 
@@ -305,18 +343,20 @@ def _align16(n):
     return -(-n // 16) * 16
 
 
-def smem_bytes(backward, parts, plan, index, windows):
+def smem_bytes(backward, parts, plan, index, windows, x_parts=None):
     """A block's shared memory, as csrc/filtered_lrelu_tc.cuh `fwd_smem` /
-    `bwd_smem` lay it out for `parts` bf16 parts per operand: windows,
-    operators, patch buffers (two for bf16 maps; for f32 maps three planes
-    and a raw f32 patch), and `parts` planes of each stage."""
+    `bwd_smem` lay it out for `parts` bf16 parts per operator and stage and
+    `x_parts` per patch (default `parts`): windows, operators, patch buffers
+    (two for patches in one part; else three planes and a raw f32 patch),
+    and `parts` planes of each stage."""
     ld = bands.smem_ld
+    x_parts = parts if x_parts is None else x_parts
     head = _align16(windows.numel() * 4) + _align16(parts * index.numel() * 2)
-    buffers = 2 if parts == 1 else parts
+    buffers = 2 if x_parts == 1 else x_parts
 
     def patch(n):
         return (buffers * _align16(n * ld(n) * 2)
-                + (0 if parts == 1 else _align16(n * n * 4)))
+                + (0 if x_parts == 1 else _align16(n * n * 4)))
 
     rp, tile = plan.rp, plan.tile
     last = _align16(max(rp * ld(rp), tile * ld(tile)) * 2)   # Z or dU, then the output tile
@@ -347,3 +387,22 @@ def test_k3_tiles_fit_shared_memory(dtype, backward, plan_layers):
             full = smem_bytes(backward, parts, *filtered_lrelu_cuda._tc_plan(
                 backward, *geometry, filtered_lrelu_cuda.TILE)[:3])
             assert full > SMEM_PER_BLOCK, (name, full)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_exact_tiles_fit_shared_memory(dtype, plan_layers):
+    """K4's and K5's 32-wide tile, operators and stages in three bf16 parts,
+    the patch in one (bf16 maps) or three (f32), fits a block's shared memory
+    at every plan geometry they serve and at up 4 (L3's filters with a top
+    crop K4 takes, py0 = -3)."""
+    x_parts = filtered_lrelu_cuda.tc_parts(torch.empty(0, dtype=dtype))
+    cases = [(plan_layers[i][1], tuple(plan_layers[i][1].padding))
+             for i in selftest.served_layers("K4", plan_layers)]
+    cases.append((plan_layers[3][1], (-6, -9, -3, -9)))
+    for layer, padding in cases:
+        geometry = (layer.up_factor, layer.down_factor, padding,
+                    len(bands.filter_taps(layer.up_filter)),
+                    len(bands.filter_taps(layer.down_filter)), torch.device("cpu"))
+        plan = filtered_lrelu_cuda._tc_plan(False, *geometry)[:3]
+        footprint = smem_bytes(False, filtered_lrelu_exact.PARTS, *plan, x_parts=x_parts)
+        assert footprint <= SMEM_PER_BLOCK, (layer.in_size, padding, footprint)
