@@ -57,6 +57,10 @@ TRAIN_STEPS = 4        # per path; step 0 (R1 and ADA) is left out of the warm t
 GRAD_TOL = 0.05        # relative max-abs of G's parameter gradients, kernel path vs conv
 GRAD_CLIPS = 4         # gradient check micro-batch: the plain path at 16 clips runs out of 80 GB
 EXACT_LAYERS = (0, 4, 6, 8, 9, 11, 12, 14)   # K4/K5: one layer of each geometry they serve
+LRES_BATCH = 64        # train_lres.py full preset: 64 clips of 128 frames at 36x64, f32
+LRES_GRAD_ACCUM = 4    # the smallest that fits in 80 GB (scripts/torch_lres_fit.py)
+LRES_STEPS = (0, 1, 2, 16)   # step indices: 0 and 16 run R1 (r1_interval 16), 0 cold
+LRES_RTOL = 1e-3       # card vs CPU at the tiny parity config: the CPU tests' bar
 SEED = 0
 
 # The TPU kernel each one replaces (function that reaches pl.pallas_call).
@@ -310,6 +314,14 @@ def main(argv=None) -> int:
     del gan, batches
     torch.cuda.empty_cache()
 
+    # 9c. Full-preset lres training: no hand kernel on this path, so every
+    # count stays 0; then the round trips, and the tiny parity on the card.
+    launches["train_lres"], lres_times = lres_train_phase(device)
+    end_to_end.update(lres_times)
+    if any(launches["train_lres"].values()):
+        raise RuntimeError(f"lres training launched {launches['train_lres']}")
+    lres_parity_phase(device)
+
     # 10. K4 through SynthesisLayer(resample_impl="pallas") and K5 through
     # its entry point, at the full-width layers they serve.
     launches["pallas"], launches["pallas_v2"] = forward_only_phase(layers, device, wgen)
@@ -498,6 +510,9 @@ def parse_log(text: str) -> dict:
         m = re.search(r"warm sec/step \(steps [\d-]+\) ([\d.]+)", line)
         if m and label:
             out[f"{label} s/step"] = float(m.group(1))
+        m = re.match(r"lres warm sec/step without R1 ([\d.]+), with R1 ([\d.]+)", line)
+        if m:
+            out["lres s/step"], out["lres R1 step s"] = float(m.group(1)), float(m.group(2))
     return out
 
 
@@ -709,6 +724,229 @@ def grad_phase(gan, c: dict, device, batches, train_gen, label: str, expected: d
           f"(tol {GRAD_TOL})")
     if not math.isfinite(grad_err) or grad_err > GRAD_TOL:
         raise RuntimeError(f"{label} vs plain G gradient rel_err {grad_err} > {GRAD_TOL}")
+
+
+def lres_train_steps(c: dict, device, steps):
+    """The full-preset lres trainer (`train_lres.make_gan`, weights from
+    SEED) driven through `train_lres.train_step` at the step indices `steps`
+    (which decide where R1 runs) on seeded synthetic videos made on the
+    card, with each update method timed (synchronised) and each optimizer
+    step preceded by a check that every
+    parameter holds a finite gradient (R1 may leave a parameter it cannot
+    reach without one). Returns (the trainer, per-step {phase: seconds},
+    per-step seconds, the statistics' Collector, peak GiB, parameters that
+    lacked a finite gradient, the modules among G, D and G_ema whose
+    parameters the steps left unchanged)."""
+    import torch
+
+    from long_video_gan_tpu_torch.train.common import step_generator
+    from long_video_gan_tpu_torch.train.stats import Collector
+    from long_video_gan_tpu_torch.train_lres import make_gan, train_step
+
+    gan = make_gan(c, device)
+    gan.init_state(torch.Generator().manual_seed(SEED))
+    data_gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    shape = (c["total_batch"], 3, c["seq_length"], c["height"], c["width"])
+
+    def synthetic_batches():
+        """Smooth random fields in [-1, 1], made on the card."""
+        while True:
+            coarse = torch.rand((shape[0], 3, shape[2] // 8, 9, 16), generator=data_gen,
+                                device=device) * 2 - 1
+            yield torch.nn.functional.interpolate(coarse, size=shape[2:], mode="trilinear",
+                                                  align_corners=False)
+
+    phase_s, current = {}, [None]
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            current[0] = name
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            phase_s[name] = time.perf_counter() - t0
+            return out
+        return run
+
+    for name in ("update_G", "update_D", "update_r1", "update_G_ema"):
+        setattr(gan, name, timed(name, getattr(gan, name)))
+    names = {id(gan.opt_G): [n for n, _ in gan.G.named_parameters()],
+             id(gan.opt_D): [n for n, _ in gan.D.named_parameters()]}
+    lacking = set()
+    apply = gan._apply
+
+    def checked_apply(opt, *args):
+        r1 = current[0] == "update_r1"
+        for name, p in zip(names[id(opt)], opt.params):
+            if (p.grad is None and not r1) or (
+                    p.grad is not None and not bool(torch.isfinite(p.grad).all())):
+                lacking.add(name)
+        return apply(opt, *args)
+
+    gan._apply = checked_apply
+    modules = {"G": gan.G, "D": gan.D, "G_ema": gan.G_ema}
+    before = {name: [p.detach().clone() for p in m.parameters()] for name, m in modules.items()}
+    batches = synthetic_batches()
+    collector = Collector()
+    torch.cuda.reset_peak_memory_stats()
+    per_step, step_s = [], []
+    for step in steps:
+        phase_s.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for stats in train_step(gan, step_generator(SEED, step, device), c, step, batches):
+            collector.report(stats)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        per_step.append(dict(phase_s))
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    unchanged = [name for name, m in modules.items()
+                 if all(torch.equal(a, p) for a, p in zip(before[name], m.parameters()))]
+    return gan, per_step, step_s, collector, peak_gib, sorted(lacking), unchanged
+
+
+def lres_train_phase(device) -> tuple[dict, dict]:
+    """Full-preset lres training (64 clips of 128 frames at 36x64 per step,
+    f32) at LRES_GRAD_ACCUM and the step indices LRES_STEPS, the counts reset just
+    before; raises unless the losses are finite, G, D and G_ema change and
+    every parameter got a finite gradient. Then G_ema through
+    save_generator / load_generator (every tensor equal, a finite video from
+    the loaded one) and the train state through save_train_checkpoint /
+    load_train_checkpoint (every tensor equal). Returns (the counts, the
+    warm and R1 seconds per step)."""
+    import torch
+
+    from long_video_gan_tpu_torch.io.checkpoint import load_generator, save_generator
+    from long_video_gan_tpu_torch.train.state import load_train_checkpoint, save_train_checkpoint
+    from long_video_gan_tpu_torch.train_lres import build_config, generator_config, make_gan
+
+    c = build_config("", LRES_BATCH, LRES_GRAD_ACCUM, 1.0, "full")
+    micro = LRES_BATCH // LRES_GRAD_ACCUM
+    phase(f"train_lres full preset: batch {LRES_BATCH} x {c['seq_length']} frames at "
+          f"{c['height']}x{c['width']}, f32, grad_accum {LRES_GRAD_ACCUM} (micro-batch "
+          f"{micro}), steps {LRES_STEPS}")
+    reset_counts()
+    gan, per_step, step_s, collector, peak_gib, lacking, unchanged = lres_train_steps(
+        c, device, LRES_STEPS)
+    counts = read_counts()
+    collector.update()
+    losses = {k: collector.mean(k) for k in ("loss/G_loss", "loss/D_loss", "loss/r1_loss",
+                                             "loss/r1_penalty")}
+    print("losses " + ", ".join(f"{k} {v:.5g}" for k, v in losses.items()))
+    for step, total, phases in zip(LRES_STEPS, step_s, per_step):
+        print(f"step {step}: {total:.3f} s (" + ", ".join(
+            f"{k} {v:.3f}" for k, v in phases.items()) + ")")
+    # The warm steps: all but the first; with and without R1 apart.
+    later = list(zip(LRES_STEPS[1:], step_s[1:]))
+    warm_r1 = [s for step, s in later if step % c["r1_interval"] == 0]
+    warm = [s for step, s in later if step % c["r1_interval"]]
+    r1 = per_step[-1]
+    print(f"per micro-batch of {micro}: D phase {r1['update_D'] / LRES_GRAD_ACCUM:.3f} s, "
+          f"R1 {r1['update_r1'] / LRES_GRAD_ACCUM:.3f} s (step {LRES_STEPS[-1]})")
+    warm, warm_r1 = sum(warm) / len(warm), sum(warm_r1) / len(warm_r1)
+    print(f"lres warm sec/step without R1 {warm:.3f}, with R1 {warm_r1:.3f}; first step "
+          f"(cold, R1) {step_s[0]:.3f} s; peak memory {peak_gib:.2f} GiB; launches {counts}")
+    if not all(math.isfinite(v) for v in losses.values()):
+        raise RuntimeError(f"non-finite lres training statistics: {losses}")
+    if lacking:
+        raise RuntimeError(f"parameters without a finite gradient: {lacking[:10]}")
+    if unchanged:
+        raise RuntimeError(f"lres training left {unchanged} unchanged")
+    print("every parameter received a finite gradient; G, D and G_ema changed")
+
+    phase("lres G_ema and train state through .lvg")
+    with tempfile.TemporaryDirectory() as tmp:
+        save_generator(f"{tmp}/G-ema.lvg", gan.G_ema, generator_config(c))
+        G_loaded, config = load_generator(f"{tmp}/G-ema.lvg", device=device)
+        save_train_checkpoint(f"{tmp}/train.lvg", gan)
+        back = make_gan(c, device)
+        load_train_checkpoint(f"{tmp}/train.lvg", back)
+    for key, value in gan.G_ema.state_dict().items():
+        if not torch.equal(G_loaded.state_dict()[key], value):
+            raise RuntimeError(f"G_ema round trip changed {key}")
+    with torch.inference_mode():
+        video = G_loaded(1, c["result_seq_length"],
+                         generator=torch.Generator(device=device).manual_seed(SEED))
+    print(f"loaded G_ema ({config['kind']}): video {tuple(video.shape)} finite "
+          f"{bool(torch.isfinite(video).all())}")
+    if (tuple(video.shape) != (1, 3, c["result_seq_length"], c["height"], c["width"])
+            or not bool(torch.isfinite(video).all())):
+        raise RuntimeError("the trained lres G_ema did not generate a finite video")
+    pairs = [(f"{name}.{k}", v, getattr(back, name).state_dict()[k])
+             for name in ("G", "G_ema", "D") for k, v in getattr(gan, name).state_dict().items()]
+    for name in ("opt_G", "opt_D"):
+        a, b = getattr(gan, name), getattr(back, name)
+        if (a.count, a.lrate) != (b.count, b.lrate):
+            raise RuntimeError(f"the train state round trip changed {name}'s count or lrate")
+        pairs += [(f"{name}.mu/nu", x, y) for x, y in zip(a.mu + a.nu, b.mu + b.nu)]
+    changed = [name for name, x, y in pairs if not torch.equal(x, y)]
+    if changed or back.step != gan.step:
+        raise RuntimeError(f"the train state round trip changed {changed[:5]} (step "
+                           f"{back.step} vs {gan.step})")
+    print(f"train state round trip: {len(pairs)} tensors equal, step {back.step}")
+    del gan, back, G_loaded, video
+    torch.cuda.empty_cache()
+    return counts, {"lres s/step": warm, "lres R1 step s": warm_r1}
+
+
+def lres_parity_phase(device) -> None:
+    """One micro-batch of each lres phase at the tiny draw-free parity config
+    (tests/test_torch_lres_train.py's) on the card, TF32 off, against the
+    same micro-batch on the CPU: losses within LRES_RTOL, every parameter
+    gradient within LRES_RTOL of the CPU gradient's max |.| for that
+    tensor."""
+    import torch
+
+    from long_video_gan_tpu_torch import selftest
+    from long_video_gan_tpu_torch.train.gan_lres import LowResVideoGAN
+
+    phase("lres phases, tiny parity config: card (TF32 off) vs CPU")
+    cfg = dict(seq_length=8, height=18, width=32, total_batch=8, diffaug_policy="",
+               temp_scale_augment=0.0, G_random_temp_translate=False,
+               G_kwargs=dict(temporal_emb_dim=64, latent_w_dim=64, temporal_padding=2,
+                             channel_max=32, embedding_kwargs=dict(
+                                 min_sampling_rate=10, max_sampling_rate=40, blur_widths=16)),
+               D_kwargs=dict(channels_max=32, epilogue_kwargs=dict(channels=64)))
+    gen = torch.Generator().manual_seed(SEED + 6)
+    gans = {d: LowResVideoGAN(**cfg, device=d) for d in ("cpu", device)}
+    gans["cpu"].init_state(gen)
+    gans[device].G.load_state_dict(gans["cpu"].G.state_dict())
+    gans[device].D.load_state_dict(gans["cpu"].D.state_dict())
+    noise = [torch.randn(gans["cpu"].G.noise_shape(4, 8), generator=gen) for _ in range(2)]
+    real = torch.rand((4, 3, 8, 18, 32), generator=gen) * 2 - 1
+    results = {}
+    with selftest.tf32_off():
+        for d, gan in gans.items():
+            out = {}
+            gan.D.requires_grad_(False)
+            loss, _ = gan.G_micro_loss(None, 4, noise=noise[0].to(d))
+            out["G"] = (loss.item(), torch.autograd.grad(loss, list(gan.G.parameters()),
+                                                         allow_unused=True))
+            gan.D.requires_grad_(True)
+            with torch.no_grad():
+                fake = gan.generate(None, 4, gan.G_magnitude_ema_beta, noise=noise[1].to(d))
+            loss, _, _ = gan.D_micro_loss(None, fake, real.to(d))
+            out["D"] = (loss.item(), torch.autograd.grad(loss, list(gan.D.parameters()),
+                                                         allow_unused=True))
+            loss, _ = gan.r1_micro_loss(None, real.to(d))
+            out["R1"] = (loss.item(), torch.autograd.grad(loss, list(gan.D.parameters()),
+                                                          allow_unused=True))
+            results[d] = out
+    for name in ("G", "D", "R1"):
+        (want, want_g), (got, got_g) = results["cpu"][name], results[device][name]
+        if [g is None for g in got_g] != [w is None for w in want_g]:
+            raise RuntimeError(f"the lres {name} phase reaches other parameters on the card")
+        pairs = [(g.cpu(), w) for g, w in zip(got_g, want_g) if w is not None]
+        # Each tensor against its max |CPU gradient|, floored at 1e-6 of the
+        # largest (tests/test_torch_train.py's bar).
+        floor = 1e-6 * max(w.abs().max().item() for _, w in pairs)
+        worst = max(((g - w).abs().max() / max(w.abs().max().item(), floor)).item()
+                    for g, w in pairs)
+        print(f"{name}: loss card {got:.6g} cpu {want:.6g}, worst gradient error "
+              f"{worst:.2e} of its tensor's max (tol {LRES_RTOL:g})")
+        if not abs(got - want) <= LRES_RTOL * abs(want) or not worst <= LRES_RTOL:
+            raise RuntimeError(f"the lres {name} phase on the card disagrees with the CPU")
 
 
 def forward_only_phase(layers, device, wgen) -> tuple[dict, dict]:

@@ -1,7 +1,8 @@
 """long_video_gan_tpu_torch — the PyTorch/CUDA port of `long_video_gan_tpu`.
 
 Runs two-stage long-video generation (lres 36x64 video, then streamed 144x256
-super-resolution) and super-resolution GAN training on one NVIDIA Hopper GPU.
+super-resolution) and both GAN trainers (low-res and super-resolution) on one
+NVIDIA Hopper GPU.
 The JAX package beside it is the reference: every module here has a
 counterpart of the same name there, and the tests hold each one against it on
 the same weights and inputs.
@@ -10,11 +11,13 @@ Layout (mirrors `long_video_gan_tpu`):
   ops/       bias_act, upfirdn2d, conv2d_resample, grid_sample, filtered_lrelu
              (+ its CUDA kernels' wrapper)
   csrc/      CUDA C++ kernels, built with nvcc at first use
-  models/    lres and sres generators, the sres discriminator, ADA
-  train/     Adam, EMA, statistics and the sres GAN trainer
+  models/    lres and sres generators and discriminators, ADA, DiffAugment
+  train/     Adam, EMA, temporal augmentations, statistics, both GAN trainers
+             and their train state in `.lvg`
   io/        `.lvg` checkpoint reader and writer, JAX-variable conversion
   utils/     shape asserts, nvcc build helper
   generate.py    the two-stage generation entry point and CLI
+  train_lres.py  the lres training CLI
   train_sres.py  the sres training CLI
 
 This package imports torch, numpy and scipy, never jax or flax.

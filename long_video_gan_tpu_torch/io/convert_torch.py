@@ -21,8 +21,10 @@ import numpy as np
 import torch
 
 # Container names whose `name_N` flax submodules are torch ModuleLists
-# (`name.N`), as in the JAX package's converter.
-MODULE_LIST_NAMES = ("temporal_layers", "spatial_layers", "blocks", "resamples")
+# (`name.N`): the JAX package converter's, and the lres discriminator
+# epilogue's `conv1d_N` / `linear_N`.
+MODULE_LIST_NAMES = ("temporal_layers", "spatial_layers", "blocks", "resamples", "conv1d",
+                     "linear")
 
 _CONST_BUFFERS = ("features",)
 

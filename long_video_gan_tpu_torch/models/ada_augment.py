@@ -10,8 +10,8 @@ reflect-pads by the same static margin (`margin_frac`).
 A `torch.Generator` takes the place of the JAX key. The values are drawn in
 the JAX package's order and under its conditions (one draw per JAX subkey),
 so `debug_percentile` runs, which overwrite every transform parameter, match
-the JAX package's. The lres trainer's `random_temporal_filter` is not ported
-yet.
+the JAX package's. `random_temporal_filter`, a per-clip temporal FIR that no
+trainer calls, completes the pipeline; its draws can be injected.
 """
 
 from __future__ import annotations
@@ -85,13 +85,15 @@ def rotate3d(v, theta, n, device):
     ], n, device)
 
 
-def _reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
-    """Reflect-pad the last two axes by `pad` as `jnp.pad(mode="reflect")`
-    does, also where `pad` reaches past the size (F.pad's reflect mode
-    refuses that)."""
-    for dim in (2, 3):
+def _reflect_pad(x: torch.Tensor, pad: int, dims=(2, 3), pad_hi: Optional[int] = None
+                 ) -> torch.Tensor:
+    """Reflect-pad axes `dims` by `pad` (and `pad_hi` after, if given) as
+    `jnp.pad(mode="reflect")` does, also where a pad reaches past the size
+    (F.pad's reflect mode refuses that)."""
+    pad_hi = pad if pad_hi is None else pad_hi
+    for dim in dims:
         size = x.shape[dim]
-        idx = torch.arange(-pad, size + pad, device=x.device)
+        idx = torch.arange(-pad, size + pad_hi, device=x.device)
         period = 2 * (size - 1)
         idx = idx.remainder(period)
         x = x.index_select(dim, torch.where(idx >= size, period - idx, idx))
@@ -400,3 +402,38 @@ class AugmentPipe:
             x = x * mask[:, None]
 
         return x.reshape(n, c, t, height, width)
+
+    def random_temporal_filter(self, generator: Optional[torch.Generator], video: torch.Tensor,
+                               p: Union[float, torch.Tensor], min_ksize: int = 2,
+                               max_ksize: int = 16, max_std: float = 1.0,
+                               draws: Optional[tuple] = None) -> torch.Tensor:
+        """Random per-clip temporal FIR jitter of [N, C, T, H, W] videos: a
+        box of `ksize` taps (drawn in [2, max_ksize], as the JAX package
+        draws it) plus zero-mean noise of std U(0, max_std), applied along
+        time after reflect padding, to the clips whose draw U(0, 1) exceeds
+        `p` (the JAX package's condition). `draws` = (ksize [N] integers,
+        std [N] in [0, 1), noise [N, max_ksize], u [N]) replaces the draws
+        from `generator`."""
+        assert video.ndim == 5 and min_ksize >= 2 and max_ksize >= min_ksize
+        n = video.shape[0]
+        dev = video.device
+        if draws is None:
+            gdev = generator.device
+            draws = (torch.randint(2, max_ksize + 1, (n,), generator=generator, device=gdev),
+                     torch.rand((n,), generator=generator, device=gdev),
+                     torch.randn((n, max_ksize), generator=generator, device=gdev),
+                     torch.rand((n,), generator=generator, device=gdev))
+        ksize, std, noise, u = (d.to(dev) for d in draws)
+        ksize = ksize.to(torch.int64).view(n, 1, 1, 1, 1)
+        index = torch.arange(max_ksize, device=dev).view(1, 1, -1, 1, 1)
+        kmask = ((index >= (max_ksize - ksize) // 2)
+                 & (index < (max_ksize + ksize) // 2)).to(torch.float32)
+        std = std.to(torch.float32).view(n, 1, 1, 1, 1) * max_std
+        weight = noise.to(torch.float32).view(n, 1, max_ksize, 1, 1) * std * kmask
+        weight = (1.0 / ksize) * kmask + weight - weight.mean(dim=2, keepdim=True)
+
+        v = _reflect_pad(video, max_ksize // 2, dims=(2,), pad_hi=(max_ksize - 1) // 2)
+        # Per-clip temporal conv: channels as the batch, clips as the groups.
+        out = F.conv3d(v.transpose(0, 1), weight.to(v.dtype), groups=n).transpose(0, 1)
+        pmask = torch.as_tensor(p, dtype=torch.float32, device=dev) < u.view(n, 1, 1, 1, 1)
+        return torch.where(pmask, out, video)

@@ -1,7 +1,10 @@
-"""Shared training machinery: the optimizer, gradient hygiene, EMA.
+"""Shared training machinery: the optimizer, gradient hygiene, EMA, and the
+lres trainer's temporal augmentations.
 
-Counterpart of `long_video_gan_tpu/train/common.py`. The lres trainer's
-temporal augmentations are not ported yet.
+Counterpart of `long_video_gan_tpu/train/common.py`. The augmentations take
+their random draws as optional tensors, so a test can feed them the draws the
+JAX functions made from their keys; without them they draw from a
+`torch.Generator`.
 """
 
 from __future__ import annotations
@@ -17,18 +20,26 @@ class Adam:
     """Adam(b1=0, b2, eps=1e-8) over a list of parameters, with the learning
     rate given at each step: `optax.adam` under `inject_hyperparams`, as the
     JAX package's `make_adam` builds it. With b1 = 0 the first moment is the
-    gradient itself, so only the second moment is kept."""
+    gradient itself: `mu` holds the last step's gradients, which the update
+    never reads, so that a train checkpoint carries optax's whole state.
+    `lrate` is the last learning rate given, in float32 (optax's injected
+    hyperparameter)."""
 
-    def __init__(self, params: Iterable[torch.Tensor], beta2: float, eps: float = 1e-8):
+    def __init__(self, params: Iterable[torch.Tensor], beta2: float, eps: float = 1e-8,
+                 lrate: float = 0.0):
         self.params = list(params)
         self.beta2, self.eps = float(beta2), float(eps)
+        self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0
+        self.lrate = float(np.float32(lrate))
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor], lrate: float) -> None:
         """params -= lrate * g / (sqrt(nu / (1 - b2**count)) + eps)."""
         self.count += 1
+        self.lrate = float(np.float32(lrate))
+        self.mu = list(grads)
         b2 = self.beta2
         torch._foreach_mul_(self.nu, b2)
         torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - b2)
@@ -80,3 +91,86 @@ def lerp_trees(target: nn.Module, source: nn.Module, weight: float) -> None:
     diff = torch._foreach_sub([src[k].to(tgt[k].dtype) for k in keys], t)
     torch._foreach_mul_(diff, float(weight))
     torch._foreach_add_(t, diff)
+
+
+# ---------------------------------------------------------------------------
+# Temporal augmentations used by the lres trainer.
+
+
+def _uniform(generator: Optional[torch.Generator], n: int, device) -> torch.Tensor:
+    if generator is None:
+        raise ValueError("need the draws or a torch.Generator to draw them from")
+    return torch.rand((n,), generator=generator, device=generator.device).to(device)
+
+
+def random_temporal_crop(video: torch.Tensor, seq_length: int,
+                         generator: Optional[torch.Generator] = None,
+                         t0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-sample crop of `seq_length` frames from a longer [N, C, T, H, W]
+    video (G_random_temp_translate), starting at frame `t0` [N] (integers in
+    [0, T - seq_length]), drawn from `generator` when not given."""
+    n, c, t, h, w = video.shape
+    assert t >= seq_length
+    if t0 is None:
+        if t > seq_length:
+            if generator is None:
+                raise ValueError("need t0 or a torch.Generator to draw it from")
+            t0 = torch.randint(0, t - seq_length + 1, (n,), generator=generator,
+                               device=generator.device)
+        else:
+            t0 = torch.zeros((n,), dtype=torch.int64)
+    idx = t0.to(video.device, torch.int64)[:, None] + torch.arange(seq_length,
+                                                                    device=video.device)
+    return torch.take_along_dim(video, idx.view(n, 1, seq_length, 1, 1), dim=2)
+
+
+def temporal_scale_augment(video: torch.Tensor, max_log2_scale: float,
+                           generator: Optional[torch.Generator] = None,
+                           sf: Optional[torch.Tensor] = None,
+                           u_pad: Optional[torch.Tensor] = None,
+                           u_crop: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-sample random temporal rescale of [N, C, T, H, W] videos: a
+    linear time-resample by `sf` [N] (2 ** U(-s, s)), zero-padded where the
+    result is shorter than T, and cropped back to T frames at a random offset
+    (`u_pad`, `u_crop` [N], uniform in [0, 1)).
+
+    The JAX package's fixed-shape form of the reference's interpolate + pad +
+    crop: output frame j reads the input at (j + crop - pad + 0.5) / sf - 0.5,
+    edge-clamped, as a lerp of its two neighbours, and is zero outside the
+    resampled length floor(T * sf)."""
+    n, c, t, h, w = video.shape
+    dev = video.device
+    if sf is None:
+        sf = torch.exp2(_uniform(generator, n, dev) * (2 * max_log2_scale) - max_log2_scale)
+    if u_pad is None:
+        u_pad = _uniform(generator, n, dev)
+    if u_crop is None:
+        u_crop = _uniform(generator, n, dev)
+    sf, u_pad, u_crop = (v.to(dev, torch.float32) for v in (sf, u_pad, u_crop))
+    t_resampled = torch.floor(t * sf).to(torch.int32)           # per-sample virtual length
+
+    pad_span = torch.clamp(t - t_resampled, min=0)
+    p0 = torch.floor(u_pad * (pad_span + 1)).to(torch.int32)
+    crop_span = torch.maximum(t_resampled, torch.full_like(t_resampled, t)) - t
+    i0 = torch.floor(u_crop * (crop_span + 1)).to(torch.int32)
+
+    j = torch.arange(t, device=dev, dtype=torch.int32)
+    k_res = j[None, :] + i0[:, None] - p0[:, None]              # [n, t]
+    valid = (k_res >= 0) & (k_res < t_resampled[:, None])
+    src = (k_res.to(torch.float32) + 0.5) / sf[:, None] - 0.5
+    src = torch.clamp(src, 0.0, t - 1.0)                        # edge clamp
+    lo = torch.floor(src).to(torch.int64)
+    hi = torch.clamp(lo + 1, max=t - 1)
+    frac = (src - lo).view(n, 1, t, 1, 1).to(video.dtype)
+    v_lo = torch.take_along_dim(video, lo.view(n, 1, t, 1, 1), dim=2)
+    v_hi = torch.take_along_dim(video, hi.view(n, 1, t, 1, 1), dim=2)
+    out = v_lo * (1 - frac) + v_hi * frac
+    return out * valid.view(n, 1, t, 1, 1).to(video.dtype)
+
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The random stream of one training step, seeded from (seed, step): the
+    CLIs' counterpart of `jax.random.fold_in(base_key, step)`, so a resumed
+    run draws at step s what an uninterrupted run draws there."""
+    state = np.random.SeedSequence([int(seed), int(step)]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(state))

@@ -1,0 +1,235 @@
+"""Stage-1 (low-res) GAN trainer.
+
+Counterpart of `long_video_gan_tpu/train/gan_lres.py` `LowResVideoGAN`, with
+the train state held by the object: the G, G_ema and D modules, their Adam
+states and the step. The update methods change that state in place and
+return their statistics (moment triples, `train.stats`).
+
+Beside what the JAX trainer does, written out for PyTorch:
+  * gradient accumulation is a loop over micro-batches; each micro-batch's
+    loss is backpropagated into the `.grad` of the module being updated, the
+    other module's parameters having `requires_grad` off;
+  * the D phase generates each micro-batch's fakes under `torch.no_grad()`
+    with `magnitude_ema_beta=G_magnitude_ema_beta`, so G's magnitude EMAs
+    move in place once per micro-batch, in the JAX scan's order, and never
+    inside a graph that autograd still needs;
+  * a `torch.Generator` takes the place of each JAX key: the noise, the
+    temporal crop and the augmentations draw from it.
+"""
+
+from __future__ import annotations
+
+import copy
+from dataclasses import dataclass, field
+from typing import Any, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..models.common import init_weights_
+from ..models.diff_augment import diff_augment
+from ..models.discriminator_lres import VideoDiscriminator
+from ..models.generator_lres import VideoGenerator
+from ..utils.misc import assert_shape
+from . import stats as stats_lib
+from .common import (Adam, collect_grads, ema_beta_schedule, lerp_trees, random_temporal_crop,
+                     scrub_grads, temporal_scale_augment, warmup_lrate)
+
+
+@dataclass
+class LowResVideoGAN:
+    seq_length: int
+    height: int
+    width: int
+    channels: int = 3
+    total_batch: int = 64
+
+    G_lrate: float = 0.003
+    G_beta2: float = 0.99
+    G_warmup_steps: int = 0
+    G_ema_beta: float = 0.99985
+    G_ema_warmup_steps: int = 25000
+    G_magnitude_ema_beta: float = 0.999
+    G_grad_accum: int = 1
+    G_kwargs: dict = field(default_factory=dict)
+    G_random_temp_translate: bool = False
+
+    D_lrate: float = 0.002
+    D_beta2: float = 0.99
+    D_warmup_steps: int = 0
+    D_grad_accum: int = 1
+    D_kwargs: dict = field(default_factory=dict)
+    r1_gamma: Optional[float] = 10.0
+
+    temp_scale_augment: float = 0.0
+    diffaug_policy: str = "color,translation,cutout"
+
+    device: Any = field(kw_only=True)
+
+    def __post_init__(self):
+        assert self.total_batch % self.G_grad_accum == 0
+        assert self.total_batch % self.D_grad_accum == 0
+        self.device = torch.device(self.device)
+        self.G = VideoGenerator(out_height=self.height, out_width=self.width, **self.G_kwargs,
+                                device=self.device)
+        self.D = VideoDiscriminator(seq_length=self.seq_length,
+                                    max_edge=max(self.height, self.width), **self.D_kwargs,
+                                    device=self.device)
+        self.G_ema = copy.deepcopy(self.G).requires_grad_(False)
+        self.init_state(None)
+
+    # ------------------------------------------------------------------ init
+
+    def init_state(self, generator: Optional[torch.Generator]) -> None:
+        """Draw G's and D's weights from `generator` (None leaves them as
+        built), copy G into G_ema, and reset the optimizers and the step."""
+        if generator is not None:
+            init_weights_(self.G, generator)
+            init_weights_(self.D, generator)
+        self.G_ema.load_state_dict(self.G.state_dict())
+        self.opt_G = Adam(self.G.parameters(), self.G_beta2, lrate=self.G_lrate)
+        self.opt_D = Adam(self.D.parameters(), self.D_beta2, lrate=self.D_lrate)
+        self.step = 0
+
+    @property
+    def gen_seq_length(self) -> int:
+        extra = self.G.total_temporal_scale if self.G_random_temp_translate else 0
+        return self.seq_length + extra
+
+    # ------------------------------------------------------------------ D run
+
+    def run_D(self, generator: Optional[torch.Generator], video: torch.Tensor) -> torch.Tensor:
+        """DiffAugment, then the temporal-scale augment (if on), then D."""
+        assert_shape(video, (None, self.channels, self.seq_length, self.height, self.width))
+        video = diff_augment(video, self.diffaug_policy, generator)
+        if self.temp_scale_augment > 0:
+            video = temporal_scale_augment(video, self.temp_scale_augment, generator)
+        return self.D(video)
+
+    def generate(self, generator: Optional[torch.Generator], batch_size: int,
+                 magnitude_ema_beta: float = 1.0, noise: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+        """Fake videos of `gen_seq_length` frames from injected white `noise`
+        or noise drawn from `generator`, cropped to `seq_length` at random
+        when G_random_temp_translate is on."""
+        video = self.G(batch_size, self.gen_seq_length, magnitude_ema_beta=magnitude_ema_beta,
+                       noise=noise, generator=generator)
+        if self.G_random_temp_translate:
+            video = random_temporal_crop(video, self.seq_length, generator)
+        return video
+
+    # ------------------------------------------------------------------ losses
+    # One micro-batch each: the trainer accumulates them, the tests hold them
+    # against the JAX package with injected noise.
+
+    def G_micro_loss(self, generator: Optional[torch.Generator], batch_size: int,
+                     noise: Optional[torch.Tensor] = None):
+        """(mean softplus(-D(G(noise))), logits)."""
+        logits = self.run_D(generator, self.generate(generator, batch_size, noise=noise))
+        return F.softplus(-logits).mean(), logits
+
+    def D_micro_loss(self, generator: Optional[torch.Generator], fake: torch.Tensor,
+                     real: torch.Tensor):
+        """(mean softplus(D(fake)) + mean softplus(-D(real)), fake logits,
+        real logits)."""
+        fake_logits = self.run_D(generator, fake)
+        real_logits = self.run_D(generator, real)
+        loss = F.softplus(fake_logits).mean() + F.softplus(-real_logits).mean()
+        return loss, fake_logits, real_logits
+
+    def r1_micro_loss(self, generator: Optional[torch.Generator], video: torch.Tensor):
+        """(mean R1 penalty * gamma / 2, per-sample penalty): the squared
+        gradient of D's summed logits, augmentations included, with respect
+        to the real video."""
+        video = video.detach().requires_grad_(True)
+        logits = self.run_D(generator, video)
+        (r1_grads,) = torch.autograd.grad(logits.sum(), video, create_graph=True)
+        penalty = r1_grads.square().sum(dim=(1, 2, 3, 4))
+        return (penalty * (self.r1_gamma / 2)).mean(), penalty
+
+    # ------------------------------------------------------------------ steps
+
+    def _apply(self, opt: Adam, gain: float, base_lrate: float, warmup_steps: int) -> float:
+        """Scrub the accumulated gradients of `opt`'s parameters, clear
+        them, and take one Adam step at the warmed-up learning rate."""
+        params = opt.params
+        grads = scrub_grads(collect_grads(params), gain=gain)
+        for p in params:
+            p.grad = None
+        lrate = warmup_lrate(base_lrate, self.step, warmup_steps)
+        opt.step(grads, lrate)
+        return lrate
+
+    def _chunks(self, x: torch.Tensor, accum: int) -> tuple[torch.Tensor, ...]:
+        assert x.shape[0] % accum == 0, (x.shape, accum)
+        return x.split(x.shape[0] // accum)
+
+    def update_G(self, generator: torch.Generator) -> dict:
+        accum = self.G_grad_accum
+        micro = self.total_batch // accum
+        self.G.requires_grad_(True)
+        self.D.requires_grad_(False)
+        zero = torch.zeros(3, device=self.device)
+        stats = {k: zero for k in ("loss/G_score", "loss/G_sign", "loss/G_loss")}
+        try:
+            for _ in range(accum):
+                loss, logits = self.G_micro_loss(generator, micro)
+                loss.backward()
+                stats = {
+                    "loss/G_score": stats["loss/G_score"] + stats_lib.moments(logits),
+                    "loss/G_sign": stats["loss/G_sign"] + stats_lib.moments(torch.sign(logits)),
+                    "loss/G_loss": stats["loss/G_loss"] + stats_lib.scalar_moments(loss),
+                }
+        finally:
+            self.D.requires_grad_(True)
+        lrate = self._apply(self.opt_G, 1.0 / accum, self.G_lrate, self.G_warmup_steps)
+        stats["progress/G_lrate"] = stats_lib.scalar_moments(lrate)
+        return stats
+
+    def update_D(self, generator: torch.Generator, real_video: torch.Tensor) -> dict:
+        assert_shape(real_video, (self.total_batch, self.channels, self.seq_length,
+                                  self.height, self.width))
+        accum = self.D_grad_accum
+        self.D.requires_grad_(True)
+        names = ("loss/D_score_fake", "loss/D_score_real", "loss/D_sign_fake",
+                 "loss/D_sign_real", "loss/D_loss")
+        zero = torch.zeros(3, device=self.device)
+        stats = {k: zero for k in names}
+        for real in self._chunks(real_video, accum):
+            # Each micro-batch's fakes, moving G's magnitude EMAs in place.
+            with torch.no_grad():
+                fake = self.generate(generator, real.shape[0], self.G_magnitude_ema_beta)
+            loss, flg, rlg = self.D_micro_loss(generator, fake, real)
+            loss.backward()
+            stats = {
+                "loss/D_score_fake": stats["loss/D_score_fake"] + stats_lib.moments(flg),
+                "loss/D_score_real": stats["loss/D_score_real"] + stats_lib.moments(rlg),
+                "loss/D_sign_fake": stats["loss/D_sign_fake"] + stats_lib.moments(torch.sign(flg)),
+                "loss/D_sign_real": stats["loss/D_sign_real"] + stats_lib.moments(torch.sign(rlg)),
+                "loss/D_loss": stats["loss/D_loss"] + stats_lib.scalar_moments(loss),
+            }
+        lrate = self._apply(self.opt_D, 1.0 / accum, self.D_lrate, self.D_warmup_steps)
+        stats["progress/D_lrate"] = stats_lib.scalar_moments(lrate)
+        return stats
+
+    def update_r1(self, generator: torch.Generator, real_video: torch.Tensor,
+                  gain: float = 1.0) -> dict:
+        assert self.r1_gamma is not None
+        accum = self.D_grad_accum
+        self.D.requires_grad_(True)
+        zero = torch.zeros(3, device=self.device)
+        stats = {k: zero for k in ("loss/r1_penalty", "loss/r1_loss")}
+        for video in self._chunks(real_video, accum):
+            loss, penalty = self.r1_micro_loss(generator, video)
+            loss.backward()
+            stats = {
+                "loss/r1_penalty": stats["loss/r1_penalty"] + stats_lib.moments(penalty),
+                "loss/r1_loss": stats["loss/r1_loss"] + stats_lib.scalar_moments(loss),
+            }
+        self._apply(self.opt_D, gain / accum, self.D_lrate, self.D_warmup_steps)
+        return stats
+
+    def update_G_ema(self) -> None:
+        beta = ema_beta_schedule(self.step, self.G_ema_beta, self.G_ema_warmup_steps)
+        lerp_trees(self.G_ema, self.G, 1.0 - beta)
+        self.step += 1

@@ -115,8 +115,8 @@ class SuperResVideoGAN:
             init_weights_(self.G, generator)
             init_weights_(self.D, generator)
         self.G_ema.load_state_dict(self.G.state_dict())
-        self.opt_G = Adam(self.G.parameters(), self.G_beta2)
-        self.opt_D = Adam(self.D.parameters(), self.D_beta2)
+        self.opt_G = Adam(self.G.parameters(), self.G_beta2, lrate=self.G_lrate)
+        self.opt_D = Adam(self.D.parameters(), self.D_beta2, lrate=self.D_lrate)
         self.ada_p = torch.tensor(self.augment_p_init, dtype=torch.float32, device=self.device)
         self.sign_real_moments = torch.zeros(3, device=self.device)
         self.step = 0

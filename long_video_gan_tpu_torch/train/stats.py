@@ -8,7 +8,9 @@ last `update()`.
 
 from __future__ import annotations
 
+import json
 import re
+import time
 
 import numpy as np
 import torch
@@ -77,3 +79,27 @@ class Collector:
         return {name: dict(mean=self.mean(name), std=self.std(name),
                            num=float(self._deltas[name][0]))
                 for name in self._deltas}
+
+
+def write_tick(collector: Collector, stats_fp, step: int, tick: int, steps_per_tick: int,
+               tick_start: float, start_time: float, device: torch.device) -> dict:
+    """Append the tick's record (the statistics' means since the last tick,
+    sec/step, peak device memory) to the open stats.jsonl `stats_fp` and
+    print its summary; the trainer CLIs' per-tick report."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    sec_per_step = (time.time() - tick_start) / steps_per_tick
+    collector.update()
+    record = {name: v["mean"] for name, v in collector.as_dict().items()}
+    record.update(step=step, tick=tick, sec_per_step=sec_per_step,
+                  total_sec=time.time() - start_time, timestamp=time.time(),
+                  peak_device_mem_gb=(torch.cuda.max_memory_allocated(device) / 2**30
+                                      if device.type == "cuda" else None))
+    stats_fp.write(json.dumps(record) + "\n")
+    stats_fp.flush()
+    print(f"step {step:<8d} tick {tick:<5d} sec/step {sec_per_step:<7.3f} "
+          f"G_loss {record.get('loss/G_loss', float('nan')):.3f} "
+          f"D_loss {record.get('loss/D_loss', float('nan')):.3f}"
+          + (f" ada_p {record['progress/augment_p']:.4f}" if "progress/augment_p" in record
+             else ""))
+    return record

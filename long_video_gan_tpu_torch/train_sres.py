@@ -5,17 +5,21 @@ Counterpart of the repository's `train_sres.py`: batch 32 of paired 36x64 /
 the full-strength ADA configuration; the `tiny` preset shrinks everything for
 a CPU smoke run. The same lr batch conditions both the fake and the real
 branch of the D step, as in the reference. Writes `config.json`,
-`stats.jsonl` (one record per tick) and a G_ema `.lvg` every
-`ticks_per_G_ema_ckpt` ticks, which the JAX package's and the port's
-`load_generator` both read.
+`stats.jsonl` (one record per tick), a G_ema `.lvg` every
+`ticks_per_G_ema_ckpt` ticks and a train `.lvg` every `ticks_per_train_ckpt`
+(the JAX package reads both as its own, and `--resume` reads either's), and
+`samples/real-lr.mp4`, `samples/real-hr.mp4` and `samples/fake-<step>-hr.mp4`
+(G_ema on the real lr clip, in 8-frame segments with its temporal context).
 
     python -m long_video_gan_tpu_torch.train_sres --dataset datasets/horseback \\
         --outdir runs/sres --batch 32 --grad-accum 2 --device cuda
     python -m long_video_gan_tpu_torch.train_sres --dataset data --preset tiny \\
         --batch 4 --device cpu
+    python -m long_video_gan_tpu_torch.train_sres ... --resume ckpt-00000400-train.lvg
 
 Data comes through the port's `data` package (ZIP shards of JPEG frames).
-Train checkpoints and `--resume`, sample videos, in-training metrics,
+Each step draws from a generator seeded from (seed, step), so a resumed run
+draws at step s what an uninterrupted one draws there. In-training metrics,
 several processes and wandb are not ported yet.
 """
 
@@ -28,10 +32,12 @@ import time
 from pathlib import Path
 from typing import Iterator, Optional
 
+import numpy as np
 import torch
 
+from .train.common import step_generator
 from .train.gan_sres import SuperResVideoGAN
-from .train.stats import Collector
+from .train.stats import Collector, write_tick
 from .utils.misc import cli_device
 
 
@@ -44,6 +50,7 @@ def build_config(dataset_dir: str, total_batch: int, grad_accum: int, r1_gamma: 
         lr_height=36, lr_width=64, hr_height=144, hr_width=256,
         x_flip=True,
         total_steps=275_000, steps_per_tick=500, ticks_per_G_ema_ckpt=10,
+        ticks_per_train_ckpt=100, result_seq_length=256,
         r1_interval=16, ada_interval=4, total_batch=total_batch,
         loader_kwargs=dict(num_workers=8, prefetch=4),
     )
@@ -63,7 +70,8 @@ def build_config(dataset_dir: str, total_batch: int, grad_accum: int, r1_gamma: 
     if preset == "tiny":
         c.update(seq_length=2, temporal_context=2, lr_height=8, lr_width=16,
                  hr_height=32, hr_width=64, total_steps=4, steps_per_tick=2,
-                 ticks_per_G_ema_ckpt=1, r1_interval=2, ada_interval=2)
+                 ticks_per_G_ema_ckpt=1, ticks_per_train_ckpt=2, result_seq_length=8,
+                 r1_interval=2, ada_interval=2)
         gan["G_kwargs"].update(latent_z_dim=32, latent_w_dim=32, margin_size=4,
                                num_fp16_res=0, channel_base=1024, channel_max=32, num_layers=6)
         gan["D_kwargs"].update(channels_base=512, channels_max=32, num_fp16_res=0)
@@ -114,26 +122,45 @@ def train_step(gan: SuperResVideoGAN, generator: torch.Generator, c: dict, step:
     return out
 
 
-def train(c: dict, run_dir: str, seed: int, device: torch.device) -> None:
+def train(c: dict, run_dir: str, seed: int, device: torch.device,
+          resume: Optional[str] = None) -> None:
     from .data.dataset import VideoDatasetTwoRes
     from .data.loader import get_infinite_data_iter
     from .io.checkpoint import save_generator
+    from .models.generator_sres import sample_video_segments
+    from .train.state import load_train_checkpoint, save_train_checkpoint
+    from .utils.video import write_video_grid
 
     start_time = time.time()
     ckpt_dir = Path(run_dir, "checkpoints")
+    samples_dir = Path(run_dir, "samples")
     ckpt_dir.mkdir(parents=True, exist_ok=True)
+    samples_dir.mkdir(parents=True, exist_ok=True)
 
-    context_len = c["seq_length"] + 2 * c["temporal_context"]
+    ctx = c["temporal_context"]
+    context_len = c["seq_length"] + 2 * ctx
     print(f"Loading paired video dataset from {c['dataset_dir']} ...")
     dataset = VideoDatasetTwoRes(c["dataset_dir"], context_len, c["lr_height"], c["lr_width"],
                                  c["hr_height"], c["hr_width"], x_flip=c["x_flip"])
     data_iter = get_infinite_data_iter(dataset, batch_size=c["total_batch"], seed=seed,
                                        **c["loader_kwargs"])
+    result_dataset = VideoDatasetTwoRes(
+        c["dataset_dir"], c["result_seq_length"] + 2 * ctx, c["lr_height"], c["lr_width"],
+        c["hr_height"], c["hr_width"], x_flip=c["x_flip"])
+    sample0 = result_dataset.sample(0, np.random.default_rng(seed))
+    result_lr = torch.from_numpy(sample0["lr_video"][None]).to(device)
+    write_video_grid(sample0["lr_video"][None][:, :, ctx:-ctx or None],
+                     samples_dir / "real-lr.mp4")
+    write_video_grid(sample0["hr_video"][None][:, :, ctx:-ctx or None],
+                     samples_dir / "real-hr.mp4")
 
     print("Constructing super res GAN model ...")
     gan = make_gan(c, device)
     gan.init_state(torch.Generator().manual_seed(seed))
-    run_gen = torch.Generator(device=device).manual_seed(seed + 1)
+    start_step = 0
+    if resume:
+        start_step = int(load_train_checkpoint(resume, gan)["step"])
+        print(f"Resumed from {resume} at step {start_step}")
     G_config = generator_config(c)
 
     batches = ({k: torch.from_numpy(v).to(device) for k, v in sample.items()
@@ -141,37 +168,31 @@ def train(c: dict, run_dir: str, seed: int, device: torch.device) -> None:
     collector = Collector()
     stats_fp = open(Path(run_dir, "stats.jsonl"), "at")
     tick_start = time.time()
-    print(f"Training for steps 0 - {c['total_steps']:,}\n")
-    for step in range(c["total_steps"] + 1):
+    print(f"Training for steps {start_step:,} - {c['total_steps']:,}\n")
+    for step in range(start_step, c["total_steps"] + 1):
         if step % c["steps_per_tick"] == 0:
             tick = step // c["steps_per_tick"]
-            if step > 0:
-                if device.type == "cuda":
-                    torch.cuda.synchronize(device)
-                sec_per_step = (time.time() - tick_start) / c["steps_per_tick"]
-                collector.update()
-                record = {name: v["mean"] for name, v in collector.as_dict().items()}
-                record.update(step=step, tick=tick, sec_per_step=sec_per_step,
-                              total_sec=time.time() - start_time, timestamp=time.time(),
-                              peak_device_mem_gb=(torch.cuda.max_memory_allocated(device) / 2**30
-                                                  if device.type == "cuda" else None))
-                stats_fp.write(json.dumps(record) + "\n")
-                stats_fp.flush()
-                print(f"step {step:<8d} tick {tick:<5d} sec/step {sec_per_step:<7.3f} "
-                      f"G_loss {record.get('loss/G_loss', float('nan')):.3f} "
-                      f"D_loss {record.get('loss/D_loss', float('nan')):.3f} "
-                      f"ada_p {record.get('progress/augment_p', float('nan')):.4f}")
+            if step > start_step:
+                write_tick(collector, stats_fp, step, tick, c["steps_per_tick"], tick_start,
+                           start_time, device)
             if tick % c["ticks_per_G_ema_ckpt"] == 0:
-                path = ckpt_dir / f"ckpt-{step:08d}-G-ema.lvg"
-                save_generator(str(path), gan.G_ema, G_config)
-                print(f"Wrote {path}")
+                save_generator(str(ckpt_dir / f"ckpt-{step:08d}-G-ema.lvg"), gan.G_ema, G_config)
+                if tick % c["ticks_per_train_ckpt"] == 0:
+                    save_train_checkpoint(str(ckpt_dir / f"ckpt-{step:08d}-train.lvg"), gan)
+                with torch.no_grad():
+                    segments = sample_video_segments(
+                        gan.G_ema, result_lr, segment_length=8, temporal_context=ctx,
+                        generator=torch.Generator(device=device).manual_seed(seed + step))
+                    write_video_grid((s.cpu().numpy() for s in segments),
+                                     samples_dir / f"fake-{step:08d}-hr.mp4")
+                print(f"Wrote the checkpoints and samples of step {step}")
             tick_start = time.time()
 
         if step == c["total_steps"]:
             print("Finished training!")
             break
 
-        for stats in train_step(gan, run_gen, c, step, batches):
+        for stats in train_step(gan, step_generator(seed, step, device), c, step, batches):
             collector.report(stats)
 
     data_iter.close()
@@ -193,6 +214,9 @@ def main(argv: Optional[list[str]] = None) -> str:
     parser.add_argument("--gamma", dest="r1_gamma", type=float, default=1.0)
     parser.add_argument("--preset", choices=["full", "tiny"], default="full")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--resume", default=None,
+                        help="train checkpoint (ckpt-*-train.lvg, the port's or the JAX "
+                             "package's) to continue from, at the step in its header")
     parser.add_argument("--total-steps", type=int, default=None)
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu; without a CUDA device, pass cpu")
@@ -211,8 +235,9 @@ def main(argv: Optional[list[str]] = None) -> str:
     Path(run_dir).mkdir(parents=True, exist_ok=True)
     print(f"Run dir: {run_dir}  seed: {args.seed}")
     with open(Path(run_dir, "config.json"), "w") as fp:
-        json.dump(dict(c, run_dir=run_dir, seed=args.seed, device=args.device), fp, indent=2)
-    train(c, run_dir, args.seed, device)
+        json.dump(dict(c, run_dir=run_dir, seed=args.seed, device=args.device,
+                       resume=args.resume), fp, indent=2)
+    train(c, run_dir, args.seed, device, args.resume)
     return run_dir
 
 

@@ -17,11 +17,10 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from long_video_gan_tpu.io.convert_torch import flax_path_to_torch_key
 from long_video_gan_tpu.train import common as jax_common
 from long_video_gan_tpu.train import stats as jax_stats
 from long_video_gan_tpu.train.gan_sres import SuperResVideoGAN as JaxSuperResVideoGAN
-from long_video_gan_tpu_torch.io.convert_torch import load_jax_variables
+from long_video_gan_tpu_torch.io.convert_torch import flax_path_to_torch_key, load_jax_variables
 from long_video_gan_tpu_torch.train import common, stats
 from long_video_gan_tpu_torch.train.gan_sres import SuperResVideoGAN
 from test_torch_generators import random_variables

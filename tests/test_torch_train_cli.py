@@ -26,6 +26,7 @@ from long_video_gan_tpu_torch.io.msgpack_encode import packb
 from long_video_gan_tpu_torch.models import generator_lres, generator_sres
 from long_video_gan_tpu_torch.train_sres import main
 from test_torch_generators import LRES_KW, random_variables
+from test_torch_lres_train import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -48,14 +49,44 @@ def test_cli_writes_stats_and_checkpoints(run):
         for name in ("loss/G_loss", "loss/D_loss", "loss/r1_penalty", "progress/augment_p"):
             assert np.isfinite(r[name]), name
     ckpts = sorted(os.listdir(os.path.join(run_dir, "checkpoints")))
-    assert ckpts == [f"ckpt-{s:08d}-G-ema.lvg" for s in (0, 2, 4)]
+    assert ckpts == sorted([f"ckpt-{s:08d}-G-ema.lvg" for s in (0, 2, 4)]
+                           + [f"ckpt-{s:08d}-train.lvg" for s in (0, 4)])
+    assert sorted(os.listdir(os.path.join(run_dir, "samples"))) == (
+        [f"fake-{s:08d}-hr.mp4" for s in (0, 2, 4)] + ["real-hr.mp4", "real-lr.mp4"])
     config = json.load(open(os.path.join(run_dir, "config.json")))
     assert config["gan_kwargs"]["G_kwargs"]["resample_impl"] == "auto"
     # G_ema moved between the first and the last checkpoint.
-    first, _ = load_checkpoint(os.path.join(run_dir, "checkpoints", ckpts[0]))
-    last, _ = load_checkpoint(os.path.join(run_dir, "checkpoints", ckpts[-1]))
+    first, _ = load_checkpoint(os.path.join(run_dir, "checkpoints", "ckpt-00000000-G-ema.lvg"))
+    last, _ = load_checkpoint(os.path.join(run_dir, "checkpoints", "ckpt-00000004-G-ema.lvg"))
     leaf = lambda t: t["params"]["SG3"]["mapping"]["fc0"]["weight"]  # noqa: E731
     assert not np.array_equal(leaf(first), leaf(last))
+
+
+def test_cli_resumes_from_a_train_checkpoint(run):
+    """--resume at step 4 with --total-steps 6: the run starts from that
+    state (its step-4 G_ema checkpoint and its ADA p are the first run's)
+    and trains on."""
+    from long_video_gan_tpu_torch.train_sres import make_gan
+    from long_video_gan_tpu_torch.train.state import load_train_checkpoint
+
+    root, run_dir = run
+    ckpt = os.path.join(run_dir, "checkpoints", "ckpt-00000004-train.lvg")
+    resumed = main(["--dataset", str(root / "data"), "--preset", "tiny", "--batch", "4",
+                    "--outdir", str(root / "runs"), "--seed", "1", "--device", "cpu",
+                    "--resume", ckpt, "--total-steps", "6"])
+    records = [json.loads(line) for line in open(os.path.join(resumed, "stats.jsonl"))]
+    assert [r["step"] for r in records] == [6]
+    assert sorted(os.listdir(os.path.join(resumed, "checkpoints"))) == [
+        "ckpt-00000004-G-ema.lvg", "ckpt-00000004-train.lvg", "ckpt-00000006-G-ema.lvg"]
+    first, _ = load_checkpoint(os.path.join(run_dir, "checkpoints", "ckpt-00000004-G-ema.lvg"))
+    again, _ = load_checkpoint(os.path.join(resumed, "checkpoints", "ckpt-00000004-G-ema.lvg"))
+    leaf = lambda t: t["params"]["SG3"]["mapping"]["fc0"]["weight"]  # noqa: E731
+    np.testing.assert_array_equal(leaf(again), leaf(first))
+    config = json.load(open(os.path.join(resumed, "config.json")))
+    gan = make_gan(config, torch.device("cpu"))
+    assert load_train_checkpoint(ckpt, gan)["step"] == gan.step == 4
+    tree, _ = load_checkpoint(os.path.join(resumed, "checkpoints", "ckpt-00000004-train.lvg"))
+    np.testing.assert_array_equal(tree["ada_p"], gan.ada_p.numpy())
 
 
 def test_jax_loads_port_checkpoint_and_generates_the_same(run):
@@ -156,6 +187,7 @@ def test_trainer_runs_without_jax_flax_msgpack(run):
         " and sys.modules[m] is not None]\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         timeout=300, cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO))
+                         timeout=300, cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1"))
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().endswith("ok")
