@@ -726,6 +726,20 @@ def grad_phase(gan, c: dict, device, batches, train_gen, label: str, expected: d
         raise RuntimeError(f"{label} vs plain G gradient rel_err {grad_err} > {GRAD_TOL}")
 
 
+def synthetic_lres_videos(c: dict, device):
+    """Batches of `c["total_batch"]` real videos for the lres trainer made on
+    the card from SEED: smooth random fields in [-1, 1] of its clip shape."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    size = (c["seq_length"], c["height"], c["width"])
+    while True:
+        coarse = torch.rand((c["total_batch"], 3, size[0] // 8, 9, 16), generator=gen,
+                            device=device) * 2 - 1
+        yield torch.nn.functional.interpolate(coarse, size=size, mode="trilinear",
+                                              align_corners=False)
+
+
 def lres_train_steps(c: dict, device, steps):
     """The full-preset lres trainer (`train_lres.make_gan`, weights from
     SEED) driven through `train_lres.train_step` at the step indices `steps`
@@ -745,17 +759,6 @@ def lres_train_steps(c: dict, device, steps):
 
     gan = make_gan(c, device)
     gan.init_state(torch.Generator().manual_seed(SEED))
-    data_gen = torch.Generator(device=device).manual_seed(SEED + 5)
-    shape = (c["total_batch"], 3, c["seq_length"], c["height"], c["width"])
-
-    def synthetic_batches():
-        """Smooth random fields in [-1, 1], made on the card."""
-        while True:
-            coarse = torch.rand((shape[0], 3, shape[2] // 8, 9, 16), generator=data_gen,
-                                device=device) * 2 - 1
-            yield torch.nn.functional.interpolate(coarse, size=shape[2:], mode="trilinear",
-                                                  align_corners=False)
-
     phase_s, current = {}, [None]
 
     def timed(name, fn):
@@ -787,7 +790,7 @@ def lres_train_steps(c: dict, device, steps):
     gan._apply = checked_apply
     modules = {"G": gan.G, "D": gan.D, "G_ema": gan.G_ema}
     before = {name: [p.detach().clone() for p in m.parameters()] for name, m in modules.items()}
-    batches = synthetic_batches()
+    batches = synthetic_lres_videos(c, device)
     collector = Collector()
     torch.cuda.reset_peak_memory_stats()
     per_step, step_s = [], []

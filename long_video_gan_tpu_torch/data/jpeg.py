@@ -9,29 +9,35 @@ libjpeg), decoding falls back to PIL on the host.
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 
 _native = None
 _native_checked = False
+# The loader's threads and the main thread decode at once: the first builds
+# the decoder while the others wait for it, not fall back to PIL.
+_native_lock = threading.Lock()
 
 
 def _load_native():
     global _native, _native_checked
-    if _native_checked:
+    with _native_lock:
+        if _native_checked:
+            return _native
+        try:
+            from . import jpeg_native
+
+            _native = jpeg_native
+        except Exception as e:
+            import warnings
+
+            warnings.warn(
+                f"native JPEG decoder unavailable ({type(e).__name__}: {e}); "
+                "falling back to PIL (~3.5x slower batch decode).")
+            _native = None
+        _native_checked = True
         return _native
-    _native_checked = True
-    try:
-        from . import jpeg_native
-
-        _native = jpeg_native
-    except Exception as e:
-        import warnings
-
-        warnings.warn(
-            f"native JPEG decoder unavailable ({type(e).__name__}: {e}); "
-            "falling back to PIL (~3.5x slower batch decode).")
-        _native = None
-    return _native
 
 
 def decode_jpeg_batch(blobs: list[bytes]) -> np.ndarray:

@@ -23,6 +23,13 @@ def _collate(samples: list[dict]) -> dict[str, np.ndarray]:
     return out
 
 
+class _Failed:
+    """What the producer thread queues when it dies: its exception."""
+
+    def __init__(self, error: BaseException):
+        self.error = error
+
+
 class InfiniteLoader:
     """Infinite shuffled batch iterator with background prefetch.
 
@@ -66,6 +73,13 @@ class InfiniteLoader:
             epoch += 1
 
     def _produce(self):
+        try:
+            self._produce_batches()
+        except BaseException as e:
+            # Hand the error to the consumer, which would otherwise wait forever.
+            self._queue.put(_Failed(e))
+
+    def _produce_batches(self):
         sample_rng_counter = 0
         with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
             for epoch, indices in self._index_stream():
@@ -92,7 +106,11 @@ class InfiniteLoader:
         return self
 
     def __next__(self) -> dict[str, np.ndarray]:
-        return self._queue.get()
+        batch = self._queue.get()
+        if isinstance(batch, _Failed):
+            self._queue.put(batch)
+            raise RuntimeError("the data loader's producer thread failed") from batch.error
+        return batch
 
     def close(self):
         self._stop.set()

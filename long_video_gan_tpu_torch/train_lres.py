@@ -12,7 +12,7 @@ its own (and `--resume` reads either's), and `samples/real-long.mp4` and
 `samples/fake-<step>.mp4` (`result_seq_length` frames from G_ema).
 
     python -m long_video_gan_tpu_torch.train_lres --dataset datasets/horseback \\
-        --outdir runs/lres --batch 64 --grad-accum 2 --gamma 1 --device cuda
+        --outdir runs/lres --batch 64 --grad-accum 4 --gamma 1 --device cuda
     python -m long_video_gan_tpu_torch.train_lres --dataset data --preset tiny \\
         --batch 4 --device cpu
     python -m long_video_gan_tpu_torch.train_lres ... --resume ckpt-00000400-train.lvg
@@ -194,9 +194,9 @@ def main(argv: Optional[list[str]] = None) -> str:
     parser.add_argument("--dataset", dest="dataset_dir", required=True)
     parser.add_argument("--batch", dest="total_batch", type=int, default=64)
     parser.add_argument("--grad-accum", type=int, default=2,
-                        help="micro-batches per step (default 2, as the reference). The full "
-                             "preset at batch 64 in f32 needs 4 or more on an 80 GB H100: a "
-                             "micro-batch of 32 runs out of memory.")
+                        help="micro-batches per step. Pass 4 for the full preset at batch 64 "
+                             "in f32 on an 80 GB H100: the default 2 (the reference's) runs "
+                             "out of memory there.")
     parser.add_argument("--gamma", dest="r1_gamma", type=float, default=1.0)
     parser.add_argument("--preset", choices=["full", "tiny"], default="full")
     parser.add_argument("--seed", type=int, default=0)

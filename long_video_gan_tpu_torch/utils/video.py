@@ -5,7 +5,8 @@ OpenCV and PIL imported only where a file is written): the port imports
 nothing of the JAX package.
 
 Encodes with OpenCV (mp4v); falls back to a PNG frame sequence if cv2 is
-unavailable. Values in [-1, 1] map to uint8 like the reference
+unavailable, and to one uint8 `.npy` array of the frames ([T, H, W, 3], RGB)
+if PIL is unavailable too. Values in [-1, 1] map to uint8 like the reference
 (x * 127.5 + 128, clamped).
 """
 
@@ -102,6 +103,8 @@ def _append_frame(writer, path, frame_rgb: np.ndarray, fps: int):
         writer.write(frame_rgb[:, :, ::-1])                  # RGB -> BGR
         return writer
     except ImportError:
+        pass
+    try:
         # PNG sequence fallback: <path>.frames/NNNNNN.png
         from PIL import Image
 
@@ -112,6 +115,20 @@ def _append_frame(writer, path, frame_rgb: np.ndarray, fps: int):
         Image.fromarray(frame_rgb).save(frames_dir / f"{writer[0]:06d}.png")
         writer[0] += 1
         return writer
+    except ImportError:
+        writer = writer or _NpyWriter(Path(str(path) + ".npy"))
+        writer.frames.append(frame_rgb)
+        return writer
+
+
+class _NpyWriter:
+    """Without cv2 and PIL: the frames as one uint8 [T, H, W, 3] array."""
+
+    def __init__(self, path: Path):
+        self.path, self.frames = path, []
+
+    def release(self) -> None:
+        np.save(self.path, np.stack(self.frames))
 
 
 def save_image_grid(image: np.ndarray, path: os.PathLike,

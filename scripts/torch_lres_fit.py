@@ -7,8 +7,8 @@ seeded random weights and synthetic videos made on the card, driven through
 For each grad-accum in `--accums`, smallest first, it runs `--steps` steps
 (step 0 runs R1) and prints each step's seconds per phase and the peak
 device memory, or that the micro-batch ran out of memory; it stops at the
-first that fits unless `--all`. Prints the card, one JSON line per
-grad-accum, and exits 0 if one fitted.
+first that fits. Prints the card, one JSON line per grad-accum, and exits 0
+if one fitted.
 
     python3 scripts/torch_lres_fit.py --accums 1,2,4,8
 """
@@ -31,7 +31,6 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--fp16-layers", type=int, default=0)
     ap.add_argument("--d-fp16-res", type=int, default=0)
-    ap.add_argument("--all", action="store_true", help="go on after the first that fits")
     args = ap.parse_args(argv)
     import torch
 
@@ -65,7 +64,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         print(json.dumps(record), flush=True)
         fitted = fitted or record["fits"]
-        if record["fits"] and not args.all:
+        if record["fits"]:
             break
     return 0 if fitted else 1
 

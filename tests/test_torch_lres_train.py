@@ -143,7 +143,7 @@ def test_D_phase_generator_and_D_loss_match_jax(pair):
                                atol=1e-4)
     np.testing.assert_allclose(real_l.detach().numpy(), np.asarray(real_j), rtol=RTOL,
                                atol=1e-4)
-    _assert_grads_match(gan_t.D, grads)
+    _assert_grads_match(gan_t.D, grads, flax_path_to_torch_key)
 
 
 def test_r1_micro_loss_and_grads_match_jax(pair):
@@ -169,7 +169,7 @@ def test_r1_micro_loss_and_grads_match_jax(pair):
     loss.backward()
     np.testing.assert_allclose(loss.item(), float(want), rtol=RTOL)
     np.testing.assert_allclose(penalty.detach().numpy(), np.asarray(want_pen), rtol=RTOL)
-    _assert_grads_match(gan_t.D, grads)
+    _assert_grads_match(gan_t.D, grads, flax_path_to_torch_key)
 
 
 def test_lres_full_step_cycle():

@@ -17,10 +17,11 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from long_video_gan_tpu.io.convert_torch import flax_path_to_torch_key
 from long_video_gan_tpu.train import common as jax_common
 from long_video_gan_tpu.train import stats as jax_stats
 from long_video_gan_tpu.train.gan_sres import SuperResVideoGAN as JaxSuperResVideoGAN
-from long_video_gan_tpu_torch.io.convert_torch import flax_path_to_torch_key, load_jax_variables
+from long_video_gan_tpu_torch.io.convert_torch import load_jax_variables
 from long_video_gan_tpu_torch.train import common, stats
 from long_video_gan_tpu_torch.train.gan_sres import SuperResVideoGAN
 from test_torch_generators import random_variables
@@ -58,10 +59,12 @@ def _inputs(seed, *shapes):
     return [rng.standard_normal(s).astype(np.float32) for s in shapes]
 
 
-def _assert_grads_match(module, jax_grads):
+def _assert_grads_match(module, jax_grads, to_key=flax_path_to_torch_key):
     """Every parameter's .grad within RTOL of max|JAX gradient| of that
-    tensor (floored at 1e-6 of the largest gradient, for near-zero ones)."""
-    want = {flax_path_to_torch_key(tuple(k.key for k in path)): np.asarray(leaf)
+    tensor (floored at 1e-6 of the largest gradient, for near-zero ones).
+    `to_key` maps a JAX parameter path to a torch key: by default the JAX
+    package's own mapping, independent of the port's."""
+    want = {to_key(tuple(k.key for k in path)): np.asarray(leaf)
             for path, leaf in jax.tree_util.tree_flatten_with_path(jax_grads)[0]}
     # A parameter that R1's second order does not reach (an output bias) has
     # no .grad in torch and a zero gradient in JAX.

@@ -191,3 +191,30 @@ def test_trainer_runs_without_jax_flax_msgpack(run):
                          env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1"))
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().endswith("ok")
+
+
+def test_trainer_runs_without_cv2_or_pil(run):
+    """Without cv2 and PIL (and the JAX side), as on a machine with only
+    torch and numpy, the CLI trains, writes its checkpoints and keeps each
+    sample video as a uint8 [T, H, W, 3] `.npy` array."""
+    root, _ = run
+    code = (
+        "import sys\n"
+        "for name in ('cv2', 'PIL', 'jax', 'flax', 'msgpack', 'optax'):\n"
+        "    sys.modules[name] = None\n"
+        "from long_video_gan_tpu_torch.train_sres import main\n"
+        f"print(main(['--dataset', {str(root / 'data')!r}, '--preset', 'tiny', '--batch', '2',"
+        f" '--outdir', {str(root / 'no_video')!r}, '--total-steps', '2', '--device', 'cpu']))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1"))
+    assert out.returncode == 0, out.stderr[-3000:]
+    run_dir = out.stdout.strip().splitlines()[-1]
+    assert sorted(os.listdir(os.path.join(run_dir, "checkpoints"))) == [
+        "ckpt-00000000-G-ema.lvg", "ckpt-00000000-train.lvg", "ckpt-00000002-G-ema.lvg"]
+    samples = sorted(os.listdir(os.path.join(run_dir, "samples")))
+    assert samples == ["fake-00000000-hr.mp4.npy", "fake-00000002-hr.mp4.npy",
+                       "real-hr.mp4.npy", "real-lr.mp4.npy"]
+    for name in samples:
+        frames = np.load(os.path.join(run_dir, "samples", name))
+        assert frames.dtype == np.uint8 and frames.ndim == 4 and frames.shape[-1] == 3, name
