@@ -18,7 +18,13 @@ share, then drives each path through the entry points a user calls:
   gradient checked against the plain path; generation from the trained
   G_ema after a save/load round trip;
 - K4 through `SynthesisLayer(resample_impl="pallas")` and K5 through its entry
-  point `filtered_lrelu_pallas_v2`, at the full-width layers they serve.
+  point `filtered_lrelu_pallas_v2`, at the full-width layers they serve;
+- the quality metrics through `metrics.metric_main.calc_metric` on the
+  full-width two-stage pipeline (K1 in every sres call, the 128-frame
+  `fvd2048_128f` clip in one pass) and a synthetic 144x256 dataset, with the
+  port's I3D, InceptionV3 and C3D detectors (seeded random weights, scripted
+  to files and loaded back through `get_detector`), each detector held on
+  one batch to the same module on the CPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --compare PARENT.log   # also the times of another
@@ -36,6 +42,7 @@ result. Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import re
@@ -43,6 +50,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 FRAMES = 64            # output frames of the generation phases
@@ -61,6 +69,12 @@ LRES_BATCH = 64        # train_lres.py full preset: 64 clips of 128 frames at 36
 LRES_GRAD_ACCUM = 4    # the smallest that fits in 80 GB (scripts/torch_lres_fit.py)
 LRES_STEPS = (0, 1, 2, 16)   # step indices: 0 and 16 run R1 (r1_interval 16), 0 cold
 LRES_RTOL = 1e-3       # card vs CPU at the tiny parity config: the CPU tests' bar
+METRIC_ITEMS = 64      # fvd2048_16f, fid50k_full, is50k: items of each side
+METRIC_LONG = 2        # fvd2048_128f: clips of each side
+METRIC_LONG_FRAMES = 128   # ... which the sres G makes in one pass (K1 at 128 frames)
+METRIC_UCF_ITEMS = 16  # isv2048_ucf: generated clips
+DETECTOR_TOL = 1e-3    # card (TF32 off) vs CPU features, of their max |.|
+SELF_FD_TOL = 1e-4     # |Fréchet distance of a stats set with itself|, of its covariance's trace
 SEED = 0
 
 # The TPU kernel each one replaces (function that reaches pl.pallas_call).
@@ -167,7 +181,8 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cpu").manual_seed(SEED)
     layers = selftest.plan_layers()
     checked = {}   # kernel -> {frames: (checks, ms, plain ms, bound ms, bound by)}
-    for kernel, sizes, f32_extra in (("K1", (SEGMENT, train_frames), (0, 3)),
+    for kernel, sizes, f32_extra in (("K1", (SEGMENT, train_frames, METRIC_LONG_FRAMES),
+                                      (0, 3)),
                                      ("K2", (train_frames,), (0, 3)),
                                      ("K3a", (SEGMENT, train_frames), (3,)),
                                      ("K3b", (train_frames,), (3,)),
@@ -325,6 +340,11 @@ def main(argv=None) -> int:
     # 10. K4 through SynthesisLayer(resample_impl="pallas") and K5 through
     # its entry point, at the full-width layers they serve.
     launches["pallas"], launches["pallas_v2"] = forward_only_phase(layers, device, wgen)
+
+    # 11. The quality metrics on the two-stage pipeline: K1 in every sres
+    # call, at the shapes checked above.
+    launches["metrics"], metric_numbers = metrics_phase(device, checked)
+    end_to_end.update(metric_numbers)
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax",
                                                                    "long_video_gan_tpu"))
@@ -1004,6 +1024,252 @@ def forward_only_phase(layers, device, wgen) -> tuple[dict, dict]:
         if not bool(torch.isfinite(y).all()):
             raise RuntimeError(f"non-finite output at {key}")
     return k4, k5
+
+
+def _random_detector_file(module, example_shape, path: str, seed: int) -> str:
+    """`module` with seeded random weights and batch-norm statistics, traced
+    on the CPU and saved to `path` (a scripted detector file)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, t in module.state_dict().items():
+            if name.endswith("running_var"):
+                t.copy_(0.8 + 0.4 * torch.rand(t.shape, generator=gen))
+            elif name.endswith("running_mean") or name.endswith("bias"):
+                t.copy_(0.02 * torch.randn(t.shape, generator=gen))
+            elif t.ndim > 1:
+                # He-scaled conv and linear weights (and batch-norm weights
+                # near 1) keep the activations in range through the network.
+                t.copy_(torch.randn(t.shape, generator=gen) * (2.0 / t[0].numel()) ** 0.5)
+            elif t.is_floating_point() and t.ndim:
+                t.copy_(1.0 + 0.1 * torch.randn(t.shape, generator=gen))
+        with warnings.catch_warnings():   # the trace's shape arithmetic: harmless here
+            warnings.simplefilter("ignore", torch.jit.TracerWarning)
+            torch.jit.trace(module.eval(), torch.zeros(example_shape)).save(path)
+    return path
+
+
+class _TimedDetector:
+    """A detector that adds its wall time (its numpy result is on the host,
+    so the card is done) and its items to `totals`."""
+
+    def __init__(self, detector, totals: dict):
+        self.detector, self.totals = detector, totals
+
+    def __call__(self, batch, **kwargs):
+        t0 = time.perf_counter()
+        out = self.detector(batch, **kwargs)
+        self.totals["detector_s"] += time.perf_counter() - t0
+        self.totals["detector_items"] += len(batch)
+        return out
+
+
+def metrics_phase(device, checked: dict) -> tuple[dict, dict]:
+    """The seven-metric registry's entry point `calc_metric` on the
+    full-width two-stage pipeline (lres `VideoGenerator()` defaults, the sres
+    G at 144x256, `num_fp16_res=4`, `auto`; seeded random weights) against a
+    synthetic 144x256 + 36x64 dataset made with the port's tool:
+    fvd2048_16f on METRIC_ITEMS real and generated clips, fvd2048_128f on
+    METRIC_LONG (the sres G on 136 lr frames in one pass), fid50k_full and
+    is50k through the InceptionV3 on METRIC_ITEMS items, isv2048_ucf through
+    the C3D on METRIC_UCF_ITEMS. The detectors have seeded random weights,
+    are scripted to files and come back through `get_detector`. Each metric
+    runs with the counts reset just before; raises unless its values are
+    finite, K1 launched 11 times per sres call (no other kernel) at the
+    shapes checked against its plain version, each detector's card features
+    (TF32 off) agree with the same module's on the CPU within DETECTOR_TOL
+    of their max |.|, and the Fréchet distance of a stats set with itself
+    is about 0. Also fvd2048_16f once more with TF32 off. Returns (the
+    counts summed over the metrics, the seconds per generated clip by
+    metric)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from long_video_gan_tpu_torch import selftest
+    from long_video_gan_tpu_torch.data import jpeg
+    from long_video_gan_tpu_torch.data.tools.synthetic import make_synthetic_dataset
+    from long_video_gan_tpu_torch.metrics import metric_main, metric_utils
+    from long_video_gan_tpu_torch.metrics.c3d import C3D, C3DDetector
+    from long_video_gan_tpu_torch.metrics.detectors import get_detector
+    from long_video_gan_tpu_torch.metrics.feature_stats import frechet_distance
+    from long_video_gan_tpu_torch.metrics.i3d import I3DDetector, InceptionI3d
+    from long_video_gan_tpu_torch.metrics.inception_v3 import InceptionDetector, InceptionV3
+    from long_video_gan_tpu_torch.models import generator_lres, generator_sres
+    from long_video_gan_tpu_torch.models.common import init_weights_
+    from long_video_gan_tpu_torch.ops import filtered_lrelu_cuda
+
+    phase("metrics through calc_metric: two-stage 36x64 -> 144x256 (auto), I3D, InceptionV3, "
+          "C3D with random weights on a synthetic dataset")
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = tmp_dir.name
+    lr = (SRES_KWARGS["lr_height"], SRES_KWARGS["lr_width"])
+    hr = (SRES_KWARGS["hr_height"], SRES_KWARGS["hr_width"])
+    t0 = time.perf_counter()
+    make_synthetic_dataset(f"{tmp}/data", [lr, hr], num_videos=METRIC_ITEMS,
+                           frames_per_video=16, num_partitions=4, seed=SEED)
+    make_synthetic_dataset(f"{tmp}/long", [hr], num_videos=METRIC_LONG,
+                           frames_per_video=METRIC_LONG_FRAMES, num_partitions=1, seed=SEED + 1)
+    print(f"synthetic datasets: {METRIC_ITEMS} videos of 16 frames at {lr} and {hr}, "
+          f"{METRIC_LONG} of {METRIC_LONG_FRAMES} at {hr}, in "
+          f"{time.perf_counter() - t0:.1f} s; JPEG decoder: {jpeg.decoder_in_use()[:400]}")
+
+    wgen = torch.Generator(device="cpu").manual_seed(SEED + 7)
+    lres_G = init_weights_(generator_lres.VideoGenerator(device=device), wgen).eval()
+    sres_G = init_weights_(generator_sres.VideoGenerator(**SRES_KWARGS, device=device),
+                           wgen).eval()
+    lres_G.requires_grad_(False)
+    sres_G.requires_grad_(False)
+    sres_inputs = []
+    sres_G.register_forward_pre_hook(lambda m, args: sres_inputs.append(tuple(args[0].shape)))
+
+    specs = {}
+    for family, module, example, cls in (
+            ("i3d", InceptionI3d(), (1, 3, 8, 32, 32), I3DDetector),
+            ("inception", InceptionV3(), (1, 3, 75, 75), InceptionDetector),
+            ("c3d", C3D(), (1, 3, 16, 112, 112), C3DDetector)):
+        path = _random_detector_file(module, example, f"{tmp}/{family}.pt", SEED + len(specs))
+        specs[family] = f"{family}:{path}"
+        det = get_detector(specs[family], device)
+        if not isinstance(det, cls):
+            raise RuntimeError(f"get_detector({specs[family]!r}) gave {type(det).__name__}")
+        for key, value in module.state_dict().items():
+            if not torch.equal(det.module.state_dict()[key].cpu(), value):
+                raise RuntimeError(f"{family}: the converted {key} differs from the file's")
+
+    # Each detector's features on the card (TF32 off) against the same
+    # module on the CPU, on one batch of the shapes the protocols give it.
+    rng = np.random.default_rng(SEED)
+    for family, shape in (("i3d", (1, 3, 16) + hr), ("inception", (4, 3) + hr),
+                          ("c3d", (1, 3, 16) + hr)):
+        det = get_detector(specs[family], device)
+        cpu_det = type(det)(copy.deepcopy(det.module).cpu(), "cpu")
+        batch = (rng.random(shape) * 255).astype(np.uint8)
+        kwargs = dict(no_output_bias=True, return_probs=False) if family == "inception" else {}
+        with selftest.tf32_off():
+            got = det(batch, **kwargs)
+        want = cpu_det(batch, **kwargs)
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        print(f"{family} detector {shape}: card (TF32 off) vs CPU {err:.2e} of max |feature| "
+              f"{np.abs(want).max():.4g} (tol {DETECTOR_TOL:g})")
+        if not err <= DETECTOR_TOL:
+            raise RuntimeError(f"the {family} detector on the card disagrees with the CPU")
+
+    hr_data = dict(dataset_dir=f"{tmp}/data", seq_length=1, height=hr[0], width=hr[1])
+    long_data = dict(hr_data, dataset_dir=f"{tmp}/long")
+    base = dict(G=sres_G, lr_G=lres_G, device=device, cache_dir=f"{tmp}/cache",
+                dataset_kwargs=hr_data)
+    runs = [("fvd2048_16f", dict(detector=specs["i3d"], max_items_override=METRIC_ITEMS)),
+            ("fvd2048_128f", dict(detector=specs["i3d"], max_items_override=METRIC_LONG,
+                                  dataset_kwargs=long_data)),
+            ("fid50k_full", dict(detector=specs["inception"], max_items_override=METRIC_ITEMS)),
+            ("is50k", dict(detector=specs["inception"], max_items_override=METRIC_ITEMS)),
+            ("isv2048_ucf", dict(detector=specs["c3d"], max_items_override=METRIC_UCF_ITEMS))]
+
+    # Time the two sides and the detectors through the functions calc_metric
+    # calls, and record the shape of every K1 output.
+    totals = {}
+    k1_shapes = set()
+    originals = {name: getattr(metric_main, name) for name in (
+        "compute_feature_stats_for_dataset", "compute_feature_stats_for_generator")}
+    get = metric_utils.get_detector
+    k1 = filtered_lrelu_cuda.filtered_lrelu_fwd_cuda
+
+    def timed(name):
+        def run(*args, **kwargs):
+            before = totals["detector_s"]
+            t0 = time.perf_counter()
+            stats = originals[name](*args, **kwargs)
+            seconds = time.perf_counter() - t0
+            totals[name] = (seconds, totals["detector_s"] - before, stats)
+            return stats
+        return run
+
+    def recording_k1(*args, **kwargs):
+        out = k1(*args, **kwargs)
+        k1_shapes.add(tuple(out.shape))
+        return out
+
+    counts_sum, per_clip, values, inputs = {}, {}, {}, {}
+    try:
+        for name in originals:
+            setattr(metric_main, name, timed(name))
+        metric_utils.get_detector = lambda spec, dev: _TimedDetector(get(spec, dev), totals)
+        filtered_lrelu_cuda.filtered_lrelu_fwd_cuda = recording_k1
+        for metric, kwargs in runs + [("fvd2048_16f", dict(runs[0][1], tf32=False))]:
+            tf32 = kwargs.pop("tf32", True)
+            if not tf32:
+                kwargs["cache_dir"] = f"{tmp}/cache_tf32_off"
+            totals.clear()
+            totals.update(detector_s=0.0, detector_items=0)
+            sres_inputs.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            with contextlib.ExitStack() as stack:
+                if not tf32:
+                    stack.enter_context(selftest.tf32_off())
+                result = metric_main.calc_metric(metric=metric, **{**base, **kwargs})
+            counts = read_counts()
+            peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+            gen_s, gen_det_s, gen_stats = totals["compute_feature_stats_for_generator"]
+            data_s, data_det_s, _ = totals.get("compute_feature_stats_for_dataset",
+                                               (0.0, 0.0, None))
+            label = metric if tf32 else f"{metric} (TF32 off)"
+            values[label] = result["results"]
+            inputs[label] = set(sres_inputs)
+            s_per_clip = (gen_s - gen_det_s) / gen_stats.num_items
+            per_clip[f"{metric} s/clip" if tf32 else f"{metric} TF32 off s/clip"] = s_per_clip
+            rate = totals["detector_items"] / totals["detector_s"]
+            print(f"metric {label}: {result['results']}; generation {s_per_clip:.4f} s per "
+                  f"clip ({gen_stats.num_items} clips, {len(sres_inputs)} sres calls of "
+                  f"{sorted(set(sres_inputs))}); detector {rate:.1f} items/s "
+                  f"({totals['detector_items']} items); dataset side {data_s:.2f} s (decode and "
+                  f"read {data_s - data_det_s:.2f} s); total {result['total_time']:.2f} s; peak "
+                  f"memory {peak_gib:.2f} GiB; launches {counts}")
+            if not all(math.isfinite(v) for v in result["results"].values()):
+                raise RuntimeError(f"{label} is not finite: {result['results']}")
+            expected = {k: (11 * len(sres_inputs) if k == "K1" else 0) for k in counts}
+            if counts != expected:
+                raise RuntimeError(f"{label} launched {counts}, expected 11 K1 per sres call "
+                                   f"({len(sres_inputs)} calls) and nothing else")
+            for k, v in counts.items():
+                counts_sum[k] = counts_sum.get(k, 0) + v
+    finally:
+        for name, fn in originals.items():
+            setattr(metric_main, name, fn)
+        metric_utils.get_detector = get
+        filtered_lrelu_cuda.filtered_lrelu_fwd_cuda = k1
+
+    long_input = (1, 3, METRIC_LONG_FRAMES + 2 * SRES_KWARGS["temporal_context"]) + lr
+    if inputs["fvd2048_128f"] != {long_input}:
+        raise RuntimeError(f"fvd2048_128f called the sres G on {inputs['fvd2048_128f']}")
+    print(f"fvd2048_128f: the sres G took {long_input} in one pass")
+    want = {k.shape for frames in checked["K1"].values() for k in frames[0] if k.ms is not None}
+    if not k1_shapes <= want:
+        raise RuntimeError(f"the metrics ran K1 at {sorted(k1_shapes - want)}, shapes not "
+                           f"checked against its plain version")
+    print(f"the metrics ran K1 at {len(k1_shapes)} shapes, each checked against plain above")
+    print(f"TF32 on fvd2048_16f: {values['fvd2048_16f']['fvd2048_16f']!r} with cuDNN's "
+          f"TF32 default, {values['fvd2048_16f (TF32 off)']['fvd2048_16f']!r} without")
+
+    # The Fréchet distance of the fvd2048_16f real statistics with themselves.
+    opts = metric_utils.MetricOptions(**{**base, **runs[0][1]})
+    real = metric_utils.compute_feature_stats_for_dataset(
+        opts, "i3d", {}, capture_mean_cov=True, max_items=2048, seq_length=16, frame_spacing=1)
+    mu, sigma = real.get_mean_cov()
+    self_fd = frechet_distance(mu, sigma, mu, sigma)
+    print(f"Fréchet distance of the real fvd2048_16f stats with themselves {self_fd:.3e} "
+          f"(trace of the covariance {np.trace(sigma):.4g}, tol {SELF_FD_TOL:g} of it)")
+    if not abs(self_fd) <= SELF_FD_TOL * np.trace(sigma):
+        raise RuntimeError("the Fréchet distance of a stats set with itself is not about 0")
+    get_detector.cache_clear()
+    del lres_G, sres_G
+    tmp_dir.cleanup()
+    torch.cuda.empty_cache()
+    return counts_sum, per_clip
 
 
 if __name__ == "__main__":

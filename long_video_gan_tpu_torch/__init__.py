@@ -1,8 +1,8 @@
 """long_video_gan_tpu_torch — the PyTorch/CUDA port of `long_video_gan_tpu`.
 
 Runs two-stage long-video generation (lres 36x64 video, then streamed 144x256
-super-resolution) and both GAN trainers (low-res and super-resolution) on one
-NVIDIA Hopper GPU.
+super-resolution), both GAN trainers (low-res and super-resolution) and the
+quality metrics (FVD, FID, KID, IS, video IS) on one NVIDIA Hopper GPU.
 The JAX package beside it is the reference: every module here has a
 counterpart of the same name there, and the tests hold each one against it on
 the same weights and inputs.
@@ -15,10 +15,15 @@ Layout (mirrors `long_video_gan_tpu`):
   train/     Adam, EMA, temporal augmentations, statistics, both GAN trainers
              and their train state in `.lvg`
   io/        `.lvg` checkpoint reader and writer, JAX-variable conversion
+  data/      ZIP-of-JPEG datasets, the loader, the JPEG decoder, the
+             synthetic dataset tool
+  metrics/   feature statistics, the I3D / InceptionV3 / C3D detectors and
+             their weight converters, the sampling protocols, the registry
   utils/     shape asserts, nvcc build helper
-  generate.py    the two-stage generation entry point and CLI
-  train_lres.py  the lres training CLI
-  train_sres.py  the sres training CLI
+  generate.py      the two-stage generation entry point and CLI
+  calc_metrics.py  the metric CLI
+  train_lres.py    the lres training CLI
+  train_sres.py    the sres training CLI
 
 This package imports torch, numpy and scipy, never jax or flax.
 """

@@ -1,7 +1,7 @@
 """ZIP-shard video datasets.
 
-The port's own copy of the part of `long_video_gan_tpu/data/dataset.py` that
-sres training reads, with the same on-disk contract:
+The port's own copy of `long_video_gan_tpu/data/dataset.py` (what training
+and the metrics read), with the same on-disk contract:
 `<root>/<HHHH>x<WWWW>/partition_*.zip` shards of JPEG frames, each shard
 carrying a `frame_paths.json` index mapping clip path -> ordered frame names.
 Readers return float32 CHW frames in [-1, 1].
@@ -149,3 +149,42 @@ class VideoDatasetTwoRes:
 
     def __len__(self) -> int:
         return len(self.lr_dataset)
+
+
+@dataclass
+class VideoDatasetPerImage:
+    """Every frame (or frame window) is one item, tagged with the number of
+    samples its source video contributes so FID can weight each video equally
+    (dataset.py:166-197; consumed by metrics/metric_utils.py)."""
+
+    dataset_dir: str
+    height: int
+    width: int
+    seq_length: int = 1
+    x_flip: bool = False
+
+    def __post_init__(self):
+        self.dataset = VideoDataset(self.dataset_dir, seq_length=1,
+                                    height=self.height, width=self.width)
+        self.video_paths = []
+        for partition_name, part in sorted(self.dataset.frame_paths.items()):
+            for clip_path, frame_names in sorted(part.items()):
+                num_samples = len(frame_names) - self.seq_length + 1
+                for start in range(num_samples):
+                    window = frame_names[start:start + self.seq_length]
+                    self.video_paths.append((partition_name, clip_path, window, num_samples))
+
+    def sample(self, index: int, rng: np.random.Generator) -> dict[str, Any]:
+        partition_name, clip_path, names, num_samples = self.video_paths[index]
+        paths = [str(PurePosixPath(clip_path) / f) for f in names]
+        video = self.dataset._frames_to_video(
+            [self.dataset.read_frame_bytes(partition_name, p) for p in paths])
+        if self.x_flip and rng.random() < 0.5:
+            video = video[..., ::-1].copy()
+        return dict(video=video, num_samples_from_source=num_samples)
+
+    def __getitem__(self, index: int) -> dict[str, Any]:
+        return self.sample(index, np.random.default_rng())
+
+    def __len__(self) -> int:
+        return len(self.video_paths)

@@ -1,13 +1,16 @@
 """ctypes binding of the native batched JPEG decoder (`csrc/jpeg_decoder.cpp`,
 g++ and libjpeg), built at import into `long_video_gan_tpu_torch/_build/`,
-named by a hash of the source and the flags. Importing raises where it cannot
-be built (with the compiler's output); `jpeg.py` then decodes with PIL."""
+named by a hash of the source, the flags and what the library is built for
+(`toolchain_key`), so that a build directory copied from another machine
+is not loaded here. Importing raises where it cannot be built (with the
+compiler's output); `jpeg.py` then decodes with PIL."""
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import platform
 import subprocess
 
 import numpy as np
@@ -18,11 +21,35 @@ GXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 GXX_LIBS = ("-ljpeg", "-lpthread")
 
 
-def build() -> str:
-    """Compile the decoder unless a library of the same hash exists."""
+def toolchain_key() -> str:
+    """What a library built here depends on besides its source and flags:
+    the machine, the g++ version, the CPU that `-march=native` resolves to,
+    and the libjpeg that g++ links (its resolved path; a bare name when g++
+    finds none)."""
+
+    def gxx(*args: str) -> str:
+        return subprocess.run(["g++", *args], capture_output=True, text=True).stdout.strip()
+
+    march = [line.split()[-1] for line in gxx("-march=native", "-Q", "--help=target").splitlines()
+             if line.strip().startswith("-march=")]
+    libjpeg = gxx("-print-file-name=libjpeg.so")
+    if os.path.isabs(libjpeg):
+        libjpeg = os.path.realpath(libjpeg)
+    return "\n".join([platform.machine(), gxx("--version").split("\n")[0], *march[:1], libjpeg])
+
+
+def library_path():
+    """The library's path in the build directory for this source, these
+    flags and `toolchain_key()`."""
     src = CSRC_DIR / "jpeg_decoder.cpp"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(GXX_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libjpeg_decoder-{digest}.so"
+    key = src.read_bytes() + " ".join(GXX_FLAGS).encode() + toolchain_key().encode()
+    return BUILD_DIR / f"libjpeg_decoder-{hashlib.sha256(key).hexdigest()[:16]}.so"
+
+
+def build() -> str:
+    """Compile the decoder unless a library of the same name exists."""
+    src = CSRC_DIR / "jpeg_decoder.cpp"
+    out = library_path()
     if out.is_file():
         return str(out)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -9,19 +9,20 @@ shrinks everything for a CPU smoke run. Writes `config.json`, `stats.jsonl`
 (one record per tick), a G_ema `.lvg` every `ticks_per_G_ema_ckpt` ticks and
 a train `.lvg` every `ticks_per_train_ckpt`, which the JAX package reads as
 its own (and `--resume` reads either's), and `samples/real-long.mp4` and
-`samples/fake-<step>.mp4` (`result_seq_length` frames from G_ema).
+`samples/fake-<step>.mp4` (`result_seq_length` frames from G_ema). With
+`--metric`, each G_ema checkpoint is scored too, into `metric-<name>.jsonl`.
 
     python -m long_video_gan_tpu_torch.train_lres --dataset datasets/horseback \\
         --outdir runs/lres --batch 64 --grad-accum 4 --gamma 1 --device cuda
     python -m long_video_gan_tpu_torch.train_lres --dataset data --preset tiny \\
         --batch 4 --device cpu
     python -m long_video_gan_tpu_torch.train_lres ... --resume ckpt-00000400-train.lvg
+    python -m long_video_gan_tpu_torch.train_lres ... -m fvd2048_128f --metric-detector stub:64
 
 Each step draws from a generator seeded from (seed, step), so a resumed run
 draws at step s what an uninterrupted one draws there. Not ported: the JAX
 CLI's XLA memory options (`--remat`, `--block-remat`, `--unroll-accum`),
-`--wandb` and several processes; in-training metrics (`--metric`) come with
-the port of the metrics.
+`--wandb` and several processes.
 """
 
 from __future__ import annotations
@@ -161,6 +162,15 @@ def train(c: dict, run_dir: str, seed: int, device: torch.device,
                     write_video_grid((s.cpu().numpy() for s in segments),
                                      samples_dir / f"fake-{step:08d}.mp4")
                 print(f"Wrote the checkpoints and samples of step {step}")
+                if c.get("metrics"):
+                    from .metrics.metric_main import report_metrics
+
+                    report_metrics(
+                        c["metrics"], run_dir, step, G=gan.G_ema, device=device,
+                        detector=c.get("metric_detector"),
+                        max_items_override=c.get("metric_items"),
+                        dataset_kwargs=dict(dataset_dir=c["dataset_dir"], seq_length=1,
+                                            height=c["height"], width=c["width"]))
             tick_start = time.time()
 
         if step == c["total_steps"]:
@@ -198,6 +208,16 @@ def main(argv: Optional[list[str]] = None) -> str:
                              "in f32 on an 80 GB H100: the default 2 (the reference's) runs "
                              "out of memory there.")
     parser.add_argument("--gamma", dest="r1_gamma", type=float, default=1.0)
+    parser.add_argument("--metric", "-m", dest="metrics", action="append", default=[],
+                        help="metric to compute at every G_ema checkpoint (repeatable), "
+                             "appended to metric-<name>.jsonl")
+    parser.add_argument("--metric-detector", default=None,
+                        help='detector override for in-training metrics, e.g. "stub:64" '
+                             "for detector-less smoke runs (default: the real detector "
+                             "files, see metrics/detectors.py)")
+    parser.add_argument("--metric-items", type=int, default=None,
+                        help="cap real/generated feature counts of in-training metrics "
+                             "(smoke runs; default: each metric's full protocol)")
     parser.add_argument("--preset", choices=["full", "tiny"], default="full")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--resume", default=None,
@@ -223,6 +243,8 @@ def main(argv: Optional[list[str]] = None) -> str:
                      args.preset, args.fp16_layers, args.d_fp16_res)
     if args.total_steps is not None:
         c["total_steps"] = args.total_steps
+    c.update(metrics=args.metrics, metric_detector=args.metric_detector,
+             metric_items=args.metric_items)
     c["matmul_precision"] = args.matmul_precision
     desc = (f"{Path(args.dataset_dir).name}-{args.total_batch}batch-{args.grad_accum}accum-"
             f"{args.r1_gamma}gamma")

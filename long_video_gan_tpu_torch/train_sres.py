@@ -10,17 +10,20 @@ branch of the D step, as in the reference. Writes `config.json`,
 (the JAX package reads both as its own, and `--resume` reads either's), and
 `samples/real-lr.mp4`, `samples/real-hr.mp4` and `samples/fake-<step>-hr.mp4`
 (G_ema on the real lr clip, in 8-frame segments with its temporal context).
+With `--metric`, each G_ema checkpoint is scored too (G_ema on real lr clips
+of the dataset, the cond-dataset protocol), into `metric-<name>.jsonl`.
 
     python -m long_video_gan_tpu_torch.train_sres --dataset datasets/horseback \\
         --outdir runs/sres --batch 32 --grad-accum 2 --device cuda
     python -m long_video_gan_tpu_torch.train_sres --dataset data --preset tiny \\
         --batch 4 --device cpu
     python -m long_video_gan_tpu_torch.train_sres ... --resume ckpt-00000400-train.lvg
+    python -m long_video_gan_tpu_torch.train_sres ... -m fvd2048_16f --metric-detector stub:64
 
 Data comes through the port's `data` package (ZIP shards of JPEG frames).
 Each step draws from a generator seeded from (seed, step), so a resumed run
-draws at step s what an uninterrupted one draws there. In-training metrics,
-several processes and wandb are not ported yet.
+draws at step s what an uninterrupted one draws there. Several processes and
+wandb are not ported yet.
 """
 
 from __future__ import annotations
@@ -186,6 +189,18 @@ def train(c: dict, run_dir: str, seed: int, device: torch.device,
                     write_video_grid((s.cpu().numpy() for s in segments),
                                      samples_dir / f"fake-{step:08d}-hr.mp4")
                 print(f"Wrote the checkpoints and samples of step {step}")
+                if c.get("metrics"):
+                    # The sres G on real lr clips: the cond-dataset protocol.
+                    from .metrics.metric_main import report_metrics
+
+                    report_metrics(
+                        c["metrics"], run_dir, step, G=gan.G_ema, device=device,
+                        detector=c.get("metric_detector"),
+                        max_items_override=c.get("metric_items"),
+                        dataset_kwargs=dict(dataset_dir=c["dataset_dir"], seq_length=1,
+                                            height=c["hr_height"], width=c["hr_width"]),
+                        cond_dataset_kwargs=dict(dataset_dir=c["dataset_dir"], seq_length=1,
+                                                 height=c["lr_height"], width=c["lr_width"]))
             tick_start = time.time()
 
         if step == c["total_steps"]:
@@ -212,6 +227,16 @@ def main(argv: Optional[list[str]] = None) -> str:
                              "preset at batch 32 needs 2 or more on an 80 GB H100: a "
                              "micro-batch of 32 runs out of memory.")
     parser.add_argument("--gamma", dest="r1_gamma", type=float, default=1.0)
+    parser.add_argument("--metric", "-m", dest="metrics", action="append", default=[],
+                        help="metric to compute at every G_ema checkpoint (repeatable), "
+                             "appended to metric-<name>.jsonl")
+    parser.add_argument("--metric-detector", default=None,
+                        help='detector override for in-training metrics, e.g. "stub:64" '
+                             "for detector-less smoke runs (default: the real detector "
+                             "files, see metrics/detectors.py)")
+    parser.add_argument("--metric-items", type=int, default=None,
+                        help="cap real/generated feature counts of in-training metrics "
+                             "(smoke runs; default: each metric's full protocol)")
     parser.add_argument("--preset", choices=["full", "tiny"], default="full")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--resume", default=None,
@@ -229,6 +254,8 @@ def main(argv: Optional[list[str]] = None) -> str:
                      args.preset)
     if args.total_steps is not None:
         c["total_steps"] = args.total_steps
+    c.update(metrics=args.metrics, metric_detector=args.metric_detector,
+             metric_items=args.metric_items)
     desc = (f"{Path(args.dataset_dir).name}-{args.total_batch}batch-{args.grad_accum}accum-"
             f"{args.r1_gamma}gamma")
     run_dir = get_next_run_dir(args.outdir, desc=desc)

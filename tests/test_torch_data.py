@@ -29,6 +29,38 @@ def test_native_build_raises_with_the_compilers_error(tmp_path, monkeypatch):
     assert not list((tmp_path / "build").iterdir())
 
 
+def test_library_name_follows_what_g_plus_plus_links(tmp_path, monkeypatch):
+    """The built decoder is named by what it links and targets, besides its
+    source and flags: a libjpeg.so that resolves to another library (as on a
+    machine with another libjpeg) gives another name, so a build directory
+    copied from elsewhere is not loaded; the same toolchain, the same name."""
+    from long_video_gan_tpu_torch.data import jpeg_native
+
+    libs = tmp_path / "lib"
+    libs.mkdir()
+    for name in ("libjpeg.so.62.3.0", "libjpeg.so.8.2.2"):
+        (libs / name).write_bytes(b"")
+    link = libs / "libjpeg.so"
+    bin_dir = tmp_path / "bin"
+    bin_dir.mkdir()
+    gxx = bin_dir / "g++"
+    gxx.write_text("#!/bin/sh\n"
+                   "case \"$1\" in\n"
+                   f"  -print-file-name=libjpeg.so) echo {link} ;;\n"
+                   "  --version) echo 'g++ (stand-in) 1.0' ;;\n"
+                   "  *) echo '  -march=                     stand-in' ;;\n"
+                   "esac\n")
+    gxx.chmod(0o755)
+    monkeypatch.setenv("PATH", f"{bin_dir}{os.pathsep}{os.environ['PATH']}")
+    names = []
+    for target in ("libjpeg.so.62.3.0", "libjpeg.so.62.3.0", "libjpeg.so.8.2.2"):
+        link.unlink(missing_ok=True)
+        link.symlink_to(target)
+        key = jpeg_native.toolchain_key()
+        assert key.splitlines()[1:] == ["g++ (stand-in) 1.0", "stand-in", str(libs / target)]
+        names.append(jpeg_native.library_path().name)
+    assert names[0] == names[1] != names[2]
+
 def test_decoder_loads_once_for_threads_that_decode_at_once(monkeypatch):
     """The loader's threads and the main thread ask for the decoder together:
     each waits for the one build instead of falling back to PIL while it

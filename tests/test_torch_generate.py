@@ -131,10 +131,11 @@ def test_cli_needs_cuda_unless_asked_for_cpu(checkpoints, tmp_path, monkeypatch)
 
 def test_port_runs_without_jax_flax_msgpack(checkpoints, tmp_path):
     """The port imports none of jax, flax, msgpack or the JAX package: with
-    them unimportable it loads both checkpoints and generates, runs the
+    them unimportable it imports every module of the CLIs, the metrics and
+    the dataset tools, loads both checkpoints and generates, runs the
     generate CLI with video writing and `--save-lres`, and trains a tiny sres
     run through its CLI on a synthetic dataset made here."""
-    from long_video_gan_tpu.data.tools.synthetic import make_synthetic_dataset
+    from long_video_gan_tpu_torch.data.tools.synthetic import make_synthetic_dataset
 
     root = checkpoints[0]
     data = tmp_path / "data"
@@ -149,7 +150,11 @@ def test_port_runs_without_jax_flax_msgpack(checkpoints, tmp_path):
         "import long_video_gan_tpu_torch\n"
         "import long_video_gan_tpu_torch.generate as g\n"
         "import long_video_gan_tpu_torch.selftest\n"
-        "from long_video_gan_tpu_torch import train_sres\n"
+        "from long_video_gan_tpu_torch import calc_metrics, train_lres, train_sres\n"
+        "from long_video_gan_tpu_torch.data.tools import synthetic\n"
+        "from long_video_gan_tpu_torch.metrics import (c3d, common, detectors, feature_stats,\n"
+        "                                              i3d, inception_v3, metric_main,\n"
+        "                                              metric_utils)\n"
         "from long_video_gan_tpu_torch.io.checkpoint import load_generator\n"
         "from long_video_gan_tpu_torch.ops import (filtered_lrelu_exact, filtered_lrelu_fused,\n"
         "                                          filtered_lrelu_polyphase)\n"

@@ -17,9 +17,9 @@ import jax.numpy as jnp
 import torch
 from flax import serialization
 
-from long_video_gan_tpu.data.tools.synthetic import make_synthetic_dataset
 from long_video_gan_tpu.io import checkpoint as jax_checkpoint
 from long_video_gan_tpu.models import generator_sres as jax_sres
+from long_video_gan_tpu_torch.data.tools.synthetic import make_synthetic_dataset
 from long_video_gan_tpu_torch.io.checkpoint import load_checkpoint, load_generator
 from long_video_gan_tpu_torch.io.convert_torch import load_jax_variables, module_to_variables
 from long_video_gan_tpu_torch.io.msgpack_encode import packb
@@ -155,6 +155,24 @@ def test_msgpack_encoder_writes_flax_bytes():
     for v in values:
         assert packb(v) == msgpack.packb(v, use_bin_type=True)
 
+
+def test_cli_scores_each_g_ema_checkpoint(run, tmp_path, monkeypatch):
+    """--metric fvd2048_16f with the stub detector scores the sres G_ema on real lr clips of the dataset (the cond-dataset protocol) at each G_ema
+    checkpoint: one JSON line per checkpoint in metric-fvd2048_16f.jsonl."""
+    root, _ = run
+    monkeypatch.setenv("LVG_CACHE_DIR", str(tmp_path / "cache"))
+    run_dir = main(["--dataset", str(root / "data"), "--preset", "tiny", "--batch", "4",
+                    "--outdir", str(tmp_path / "runs"), "--total-steps", "2", "--device", "cpu",
+                    "-m", "fvd2048_16f", "--metric-detector", "stub:16", "--metric-items", "8"])
+    records = [json.loads(line)
+               for line in open(os.path.join(run_dir, "metric-fvd2048_16f.jsonl"))]
+    assert [r["step"] for r in records] == [0, 2]
+    assert all(r["metric"] == "fvd2048_16f" and np.isfinite(r["results"]["fvd2048_16f"])
+               for r in records)
+    config = json.load(open(os.path.join(run_dir, "config.json")))
+    assert (config["metrics"], config["metric_detector"], config["metric_items"]) == (
+        ["fvd2048_16f"], "stub:16", 8)
+    assert os.listdir(tmp_path / "cache" / "long_video_gan_tpu_torch" / "metric_stats")
 
 def test_cli_needs_cuda_unless_asked_for_cpu(run, tmp_path, monkeypatch):
     """`--device` defaults to cuda: with no CUDA device and no `--device`, the
