@@ -24,7 +24,15 @@ share, then drives each path through the entry points a user calls:
   `fvd2048_128f` clip in one pass) and a synthetic 144x256 dataset, with the
   port's I3D, InceptionV3 and C3D detectors (seeded random weights, scripted
   to files and loaded back through `get_detector`), each detector held on
-  one batch to the same module on the CPU.
+  one batch to the same module on the CPU;
+- data-parallel sres training at full width through `train_sres.train_step`
+  in a world-1 NCCL process group, bit-equal to the same steps without one
+  (deterministic algorithms in both), with the gradient all_reduce's bytes
+  and time;
+- two processes on the one card in a gloo group over CUDA tensors: the
+  collectives gloo carries there, one step of each tiny trainer against one
+  process's (`parallel.selfcheck`), and time-sharded lres synthesis at full
+  width against the unsharded pass over the same noise.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --compare PARENT.log   # also the times of another
@@ -45,7 +53,9 @@ import argparse
 import contextlib
 import json
 import math
+import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -75,6 +85,11 @@ METRIC_LONG_FRAMES = 128   # ... which the sres G makes in one pass (K1 at 128 f
 METRIC_UCF_ITEMS = 16  # isv2048_ucf: generated clips
 DETECTOR_TOL = 1e-3    # card (TF32 off) vs CPU features, of their max |.|
 SELF_FD_TOL = 1e-4     # |Fréchet distance of a stats set with itself|, of its covariance's trace
+DP_STEPS = (0, 1)      # data-parallel sres steps: 0 runs R1 and ADA, 1 neither
+DP_RANKS = 2           # processes on the one card over gloo
+DP_RTOL = 1e-5         # their tiny steps against one process's (parallel.selfcheck's bar)
+TEMPORAL_FRAMES = 1024     # time-sharded lres synthesis over DP_RANKS ranks
+TEMPORAL_RTOL, TEMPORAL_ATOL = 1e-4, 2e-6   # tests/test_temporal_sharding.py's bar
 SEED = 0
 
 # The TPU kernel each one replaces (function that reaches pl.pallas_call).
@@ -346,6 +361,15 @@ def main(argv=None) -> int:
     launches["metrics"], metric_numbers = metrics_phase(device, checked)
     end_to_end.update(metric_numbers)
 
+    # 12. Data-parallel sres training in a world-1 NCCL group: K1/K2 on the
+    # distributed path, bit-equal to the plain path.
+    launches["train_dp"], dp_numbers = data_parallel_phase(c, device)
+    end_to_end.update(dp_numbers)
+
+    # 13. Two processes on the one card over gloo: the trainers' global-batch
+    # semantics and time-sharded lres synthesis.
+    end_to_end.update(two_rank_phase(device))
+
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax",
                                                                    "long_video_gan_tpu"))
     if leaked:
@@ -610,6 +634,23 @@ def time_sres(label: str, sres_G, lr_video, run_gen) -> float:
     return FRAMES / sorted(runs)[1]
 
 
+def synthetic_sres_batches(c: dict, device):
+    """Seeded sres training batches made on the card: smooth random fields in
+    [-1, 1] at the lr and hr clip shapes."""
+    import torch
+
+    data_gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    ctx_len = c["seq_length"] + 2 * c["temporal_context"]
+    while True:
+        batch = {}
+        for key, (h, w) in (("lr_video", (36, 64)), ("hr_video", (144, 256))):
+            coarse = torch.rand((TRAIN_BATCH, 3, ctx_len, 9, 16), generator=data_gen,
+                                device=device) * 2 - 1
+            batch[key] = torch.nn.functional.interpolate(
+                coarse, size=(ctx_len, h, w), mode="trilinear", align_corners=False)
+        yield batch
+
+
 def train_phase(c: dict, device, label: str, steps: int, checked: dict, train_frames: int,
                 expected: dict):
     """`steps` full-preset training steps on seeded synthetic videos made on
@@ -628,21 +669,7 @@ def train_phase(c: dict, device, label: str, steps: int, checked: dict, train_fr
           f"(micro-batch {micro}), {steps} steps")
     gan = make_gan(c, device)
     gan.init_state(torch.Generator().manual_seed(SEED))
-    data_gen = torch.Generator(device=device).manual_seed(SEED + 2)
-    ctx_len = c["seq_length"] + 2 * c["temporal_context"]
-
-    def synthetic_batches():
-        """Seeded videos made on the card: smooth random fields in [-1, 1]."""
-        while True:
-            batch = {}
-            for key, (h, w) in (("lr_video", (36, 64)), ("hr_video", (144, 256))):
-                coarse = torch.rand((TRAIN_BATCH, 3, ctx_len, 9, 16), generator=data_gen,
-                                    device=device) * 2 - 1
-                batch[key] = torch.nn.functional.interpolate(
-                    coarse, size=(ctx_len, h, w), mode="trilinear", align_corners=False)
-            yield batch
-
-    batches = synthetic_batches()
+    batches = synthetic_sres_batches(c, device)
     snapshot = {name: {k: v.detach().clone() for k, v in m.state_dict().items()}
                 for name, m in (("G", gan.G), ("D", gan.D), ("G_ema", gan.G_ema))}
     train_gen = torch.Generator(device=device).manual_seed(SEED + 3)
@@ -1272,5 +1299,272 @@ def metrics_phase(device, checked: dict) -> tuple[dict, dict]:
     return counts_sum, per_clip
 
 
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def deterministic():
+    """cuDNN's deterministic algorithms and PyTorch's deterministic mode
+    (warning, not raising, where an op has none), TF32 off: two runs of one
+    full-preset sres step from one state are then bit-equal on the card
+    (without, 190 of its 199 tensors differ). Yields the warnings."""
+    import torch
+
+    from long_video_gan_tpu_torch import selftest
+
+    previous = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled(),
+                torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with selftest.tf32_off(), warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield caught
+    finally:
+        torch.backends.cudnn.deterministic = previous[0]
+        torch.use_deterministic_algorithms(previous[1], warn_only=previous[2])
+
+
+def data_parallel_phase(c: dict, device) -> tuple[dict, dict]:
+    """The full sres preset's steps DP_STEPS through `train_sres.train_step`
+    without a process group, then again from the same state, seed and
+    batches in a world-1 NCCL group (every collective of the parallel layer
+    runs), the counts reset just before: raises unless the two leave
+    bit-equal states (parameters, G_ema, magnitude EMAs, w_avg, Adam
+    moments, ada_p) and K1 and K2 launched. Returns (the counts, the
+    seconds per step of both and the gradient all_reduce's ms)."""
+    import torch
+    import torch.distributed as dist
+
+    from long_video_gan_tpu_torch.parallel import mesh, selfcheck
+    from long_video_gan_tpu_torch.train.common import step_generator
+    from long_video_gan_tpu_torch.train_sres import make_gan, train_step
+
+    phase(f"data-parallel train_sres full preset, world 1 over NCCL: batch {TRAIN_BATCH}, "
+          f"grad_accum {GRAD_ACCUM}, steps {DP_STEPS}, against no process group "
+          f"(deterministic algorithms, TF32 off, in both)")
+    source = synthetic_sres_batches(c, device)
+    batches = [next(source) for step in DP_STEPS
+               for _ in range(2 + (step % c["r1_interval"] == 0))]
+    reduces = []
+
+    def run():
+        gan = make_gan(c, device)
+        gan.init_state(torch.Generator().manual_seed(SEED))
+        feed, step_s = iter(batches), []
+        for step in DP_STEPS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train_step(gan, step_generator(SEED, step, device), c, step, feed)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        return selfcheck.train_state(gan), step_s
+
+    all_reduce_mean_ = mesh.all_reduce_mean_
+
+    def timed_mean(tensors):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = all_reduce_mean_(tensors)
+        end.record()
+        reduces.append((len(tensors), sum(t.numel() * t.element_size() for t in tensors),
+                        start, end))
+        return out
+
+    with deterministic() as caught:
+        plain, plain_s = run()
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                                world_size=1)
+        mesh.all_reduce_mean_ = timed_mean
+        try:
+            reset_counts()
+            dp, dp_s = run()
+            counts = read_counts()
+        finally:
+            mesh.all_reduce_mean_ = all_reduce_mean_
+            dist.destroy_process_group()
+    torch.cuda.synchronize()
+    grads = [(n, b, s.elapsed_time(e)) for n, b, s, e in reduces if n > 1]
+    scalars = [s.elapsed_time(e) for n, b, s, e in reduces if n == 1]
+    # The group's first collective sets NCCL's communicator up.
+    print(f"first collective (NCCL set-up) {reduces[0][2].elapsed_time(reduces[0][3]):.3f} ms")
+    if reduces[0][0] == 1:
+        scalars = scalars[1:]
+    else:
+        grads = grads[1:]
+    print(f"ops without a deterministic implementation: {len({str(w.message) for w in caught})}")
+    print(f"sec per step without a group {', '.join(f'{t:.3f}' for t in plain_s)}, world-1 "
+          f"NCCL {', '.join(f'{t:.3f}' for t in dp_s)} (steps {DP_STEPS})")
+    print("gradient all_reduce (one flat buffer per phase): " + ", ".join(
+        f"{n} tensors {b / 2**20:.2f} MiB {ms:.3f} ms" for n, b, ms in grads))
+    print(f"magnitude-EMA, w_avg and loss means: {len(scalars)} more scalar "
+          f"all_reduces, {sum(scalars):.3f} ms in all")
+    unequal = [k for k in plain if not torch.equal(plain[k], dp[k])]
+    print(f"{len(plain) - len(unequal)} of {len(plain)} state tensors bit-equal; launches {counts}")
+    if unequal:
+        raise RuntimeError(f"the world-1 NCCL step changed {unequal[:5]}")
+    if not counts["K1"] or not counts["K2"]:
+        raise RuntimeError(f"data-parallel training launched {counts}, not K1 and K2")
+    g_bytes = max(b for _, b, _ in grads)
+    return counts, {"dp world-1 s/step": dp_s[-1], "plain s/step (deterministic)": plain_s[-1],
+                    "dp grad all_reduce ms": max(ms for _, b, ms in grads if b == g_bytes)}
+
+
+def two_rank_phase(device) -> dict:
+    """DP_RANKS processes on the one card in a gloo group over CUDA tensors
+    (`--rank-worker`): each checks that all_reduce, broadcast and all_gather
+    carry CUDA tensors and give the right values, takes one step of each tiny
+    trainer (`parallel.selfcheck.tiny_step`: ADA at p = 0.5, grad-accum 2, R1)
+    and synthesizes TEMPORAL_FRAMES lres frames at the `VideoGenerator()`
+    defaults time-sharded, default halo. This process computes the same
+    without a group; raises unless the ranks agree with each other, the steps
+    with one process's within DP_RTOL (deterministic algorithms, TF32 off) and
+    the video with the unsharded pass. The video is made by G as trained
+    (float32) and by a float64 copy of it (`temporal_models`), each sharded
+    and unsharded, and held to the unsharded float64 pass: the float64 one
+    within TEMPORAL_RTOL / TEMPORAL_ATOL, the float32 one within those plus
+    how far the unsharded float32 pass itself lies beyond them. At full width
+    on the card that is more than the bar's atol, which the JAX test set at
+    a tiny width (PERF.md §6)."""
+    import torch
+
+    from long_video_gan_tpu_torch.parallel import selfcheck, temporal
+
+    phase(f"{DP_RANKS} ranks on one card over gloo with CUDA tensors: the tiny trainers' step "
+          f"against one process; lres synthesis of {TEMPORAL_FRAMES} frames time-sharded")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        port = free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank-worker", tmp],
+            env={**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+                 "RANK": str(r), "WORLD_SIZE": str(DP_RANKS)},
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(DP_RANKS)]
+        try:
+            with deterministic():
+                want = {kind: selfcheck.tiny_step(kind, device) for kind in ("lres", "sres")}
+                models = temporal_models(device)
+                G = models["float32"]
+                halo = 8 * G.total_temporal_scale
+                noise_len = G.noise_shape(1, TEMPORAL_FRAMES // DP_RANKS + 2 * halo)[2]
+                noise = torch.randn((1, G.noise_channels, (DP_RANKS - 1) * TEMPORAL_FRAMES
+                                     // DP_RANKS + noise_len),
+                                    generator=torch.Generator().manual_seed(SEED + 6))
+                with torch.no_grad():
+                    want_video = {name: temporal._window_video_from_noise(
+                        model, noise, TEMPORAL_FRAMES + 2 * halo)[
+                            :, :, halo:halo + TEMPORAL_FRAMES].cpu()
+                                  for name, model in models.items()}
+                del G, models
+            outs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            print(f"rank {r}: " + out.strip().replace("\n", "\n  "))
+            if p.returncode != 0:
+                raise RuntimeError(f"rank {r} of {DP_RANKS} exited with {p.returncode}")
+        got = [torch.load(f"{tmp}/rank{r}.pt") for r in range(DP_RANKS)]
+    for r in range(1, DP_RANKS):
+        for kind in want:
+            unequal = [k for k, v in got[0]["steps"][kind].items()
+                       if not torch.equal(v, got[r]["steps"][kind][k])]
+            if unequal:
+                raise RuntimeError(f"ranks 0 and {r} differ after the {kind} step: {unequal[:5]}")
+        for name in want_video:
+            if not torch.equal(got[0]["video"][name], got[r]["video"][name]):
+                raise RuntimeError(f"ranks 0 and {r} hold different {name} videos")
+    for kind, one in want.items():
+        params = selfcheck.param_keys(selfcheck.trainer(kind, "cpu")[2])
+        errors = selfcheck.relative_errors(got[0]["steps"][kind], one, params)
+        worst = max(errors, key=errors.get)
+        print(f"{kind} step on {DP_RANKS} ranks vs 1: {len(errors)} tensors and statistics, "
+              f"worst {worst} {errors[worst]:.3e} (bar {DP_RTOL})")
+        if not errors[worst] <= DP_RTOL:
+            raise RuntimeError(f"the {kind} step on {DP_RANKS} ranks is not one process's")
+
+    exact = want_video["float64"]
+
+    def beyond_rtol(video):
+        """max of |video - exact| - rtol * |exact|: what atol must cover."""
+        return ((video - exact).abs() - TEMPORAL_RTOL * exact.abs()).max().item()
+
+    sharded = got[0]["video"]
+    e64, e32 = beyond_rtol(sharded["float64"]), beyond_rtol(sharded["float32"])
+    floor = beyond_rtol(want_video["float32"])
+    print(f"time-sharded lres {tuple(exact.shape)} against the unsharded pass in float64, "
+          f"beyond rtol {TEMPORAL_RTOL}: sharded in float64 {e64:.3e} (bar atol "
+          f"{TEMPORAL_ATOL}); sharded in float32 {e32:.3e}, the unsharded float32 pass "
+          f"{floor:.3e} (bar atol {TEMPORAL_ATOL} + the unsharded float32 pass's)")
+    if (any(tuple(v.shape) != tuple(exact.shape) for v in sharded.values())
+            or not e64 <= TEMPORAL_ATOL or not e32 <= TEMPORAL_ATOL + max(floor, 0.0)):
+        raise RuntimeError("time-sharded lres synthesis is not the unsharded pass")
+    seconds = time.perf_counter() - t0
+    print(f"two-rank phase {seconds:.1f} s")
+    return {"two-rank phase s": seconds}
+
+
+def temporal_models(device) -> dict:
+    """The lres G at the `VideoGenerator()` defaults with weights from SEED,
+    as trained and as a float64 copy: {"float32": G, "float64": G64}."""
+    import copy
+
+    import torch
+
+    from long_video_gan_tpu_torch.models import generator_lres
+    from long_video_gan_tpu_torch.models.common import init_weights_
+
+    G = init_weights_(generator_lres.VideoGenerator(device=device),
+                      torch.Generator().manual_seed(SEED))
+    return {"float32": G, "float64": copy.deepcopy(G).double()}
+
+
+def rank_worker(out_dir: str) -> None:
+    """One rank of `two_rank_phase`, on cuda:0 in a gloo group from RANK,
+    WORLD_SIZE, MASTER_ADDR and MASTER_PORT."""
+    import torch
+    import torch.distributed as dist
+
+    from long_video_gan_tpu_torch.parallel import selfcheck, temporal
+
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}",
+        rank=rank, world_size=world)
+    total = torch.full((3,), float(rank + 1), device=device)
+    dist.all_reduce(total)
+    first = torch.full((3,), float(rank + 1), device=device)
+    dist.broadcast(first, src=0)
+    parts = [torch.empty(3, device=device) for _ in range(world)]
+    dist.all_gather(parts, torch.full((3,), float(rank), device=device))
+    carried = {"all_reduce": total.tolist() == [world * (world + 1) / 2] * 3,
+               "broadcast": first.tolist() == [1.0] * 3,
+               "all_gather": [p.tolist() for p in parts] == [[float(r)] * 3
+                                                              for r in range(world)]}
+    print(f"gloo on CUDA tensors: {carried}")
+    if not all(carried.values()):
+        raise RuntimeError(f"gloo did not carry CUDA tensors right: {carried}")
+    with deterministic():
+        steps = {kind: selfcheck.tiny_step(kind, device) for kind in ("lres", "sres")}
+        with torch.no_grad():
+            video = {name: temporal.synthesize_time_sharded(
+                model, 1, TEMPORAL_FRAMES, torch.Generator().manual_seed(SEED + 6))
+                     for name, model in temporal_models(device).items()}
+    torch.save({"steps": steps, "video": {k: v.cpu() for k, v in video.items()}},
+               f"{out_dir}/rank{rank}.pt")
+    dist.destroy_process_group()
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-worker"]:
+        rank_worker(sys.argv[2])
+        sys.exit(0)
     sys.exit(main())

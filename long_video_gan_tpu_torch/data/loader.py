@@ -3,6 +3,13 @@
 The port's own copy of `long_video_gan_tpu/data/loader.py`: a threadpool
 decodes and assembles sample dicts ahead of time, batches collate into numpy
 arrays, and each of `num_shards` processes reads only its index shard.
+
+Beside the JAX package's loader, the shards of one epoch hold equally many
+batches (the epoch is cut to whole global batches), and a sample's random
+stream is keyed on its place in the global stream, not in the shard's: so
+`num_shards` processes at `batch_size` each read, sample for sample, the
+global batches that one process reads at `num_shards * batch_size`. Global
+row q of a batch is row q // num_shards of shard q % num_shards.
 """
 
 from __future__ import annotations
@@ -34,7 +41,8 @@ class InfiniteLoader:
     """Infinite shuffled batch iterator with background prefetch.
 
     Epoch semantics mirror DistributedSampler: every epoch reshuffles the full
-    index list with (seed, epoch); host `shard_id` of `num_shards` takes every
+    index list with (seed, epoch), cut to whole global batches of
+    `num_shards * batch_size`; host `shard_id` of `num_shards` takes every
     num_shards-th index; drop_last always (batches are exact).
     """
 
@@ -58,17 +66,19 @@ class InfiniteLoader:
         epoch = 0
         n = len(self.dataset)
         assert n > 0, "empty dataset"
+        global_batch = self.batch_size * self.num_shards
         while True:
             rng = np.random.default_rng((self.seed, epoch))
             order = rng.permutation(n)
-            shard = order[self.shard_id::self.num_shards]
-            usable = (len(shard) // self.batch_size) * self.batch_size
+            usable = (n // global_batch) * global_batch
             if usable == 0:
-                # Shard smaller than one batch: sample with replacement so the
-                # stream still produces batches (otherwise the producer would
-                # spin through empty epochs forever while the consumer blocks).
-                yield epoch, rng.choice(shard, size=self.batch_size, replace=True)
-            for i in range(0, usable, self.batch_size):
+                # Dataset smaller than one global batch: sample with
+                # replacement so the stream still produces batches (otherwise
+                # the producer would spin through empty epochs forever while
+                # the consumer blocks).
+                order, usable = rng.choice(order, size=global_batch, replace=True), global_batch
+            shard = order[:usable][self.shard_id::self.num_shards]
+            for i in range(0, len(shard), self.batch_size):
                 yield epoch, shard[i:i + self.batch_size]
             epoch += 1
 
@@ -90,7 +100,8 @@ class InfiniteLoader:
 
                 def fetch(args):
                     offset, idx = args
-                    rng = np.random.default_rng((self.seed, 1 + self.shard_id, base + offset))
+                    place = (base + offset) * self.num_shards + self.shard_id
+                    rng = np.random.default_rng((self.seed, 1, place))
                     return self.dataset.sample(int(idx), rng)
 
                 samples = list(pool.map(fetch, enumerate(indices)))

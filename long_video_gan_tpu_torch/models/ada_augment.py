@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from ..ops.filters import setup_filter, wavelet_lowpass
 from ..ops.grid_sample import affine_grid, grid_sample
 from ..ops.upfirdn2d import downsample2d, upsample2d
+from ..parallel.mesh import global_draw
 
 # ---------------------------------------------------------------------------
 # Batched homogeneous transforms: [n, 3, 3] / [n, 4, 4] float32.
@@ -177,12 +178,12 @@ class AugmentPipe:
         dp = debug_percentile
 
         def rand(shape=()):
-            return torch.rand((n,) + shape, generator=generator,
-                              device=generator.device).to(dev)
+            return global_draw(lambda m: torch.rand((m,) + shape, generator=generator,
+                                                    device=generator.device), n).to(dev)
 
         def nrand(shape=()):
-            return torch.randn((n,) + shape, generator=generator,
-                               device=generator.device).to(dev)
+            return global_draw(lambda m: torch.randn((m,) + shape, generator=generator,
+                                                     device=generator.device), n).to(dev)
 
         def where(cond, value, default):
             return torch.where(cond, value, torch.as_tensor(default, dtype=value.dtype,
@@ -382,7 +383,8 @@ class AugmentPipe:
             if dp is not None:
                 sigma = full(sigma, torch.special.erfinv(torch.tensor(dp, dtype=torch.float32))
                              * self.noise_std)
-            noise = torch.randn(x.shape, generator=generator, device=generator.device).to(dev)
+            noise = global_draw(lambda m: torch.randn((m,) + x.shape[1:], generator=generator,
+                                                      device=generator.device), n).to(dev)
             x = x + noise * sigma[:, None, None, None]
 
         if self.cutout > 0:
@@ -419,10 +421,12 @@ class AugmentPipe:
         dev = video.device
         if draws is None:
             gdev = generator.device
-            draws = (torch.randint(2, max_ksize + 1, (n,), generator=generator, device=gdev),
-                     torch.rand((n,), generator=generator, device=gdev),
-                     torch.randn((n, max_ksize), generator=generator, device=gdev),
-                     torch.rand((n,), generator=generator, device=gdev))
+            draws = (global_draw(lambda m: torch.randint(2, max_ksize + 1, (m,),
+                                                         generator=generator, device=gdev), n),
+                     global_draw(lambda m: torch.rand((m,), generator=generator, device=gdev), n),
+                     global_draw(lambda m: torch.randn((m, max_ksize), generator=generator,
+                                                       device=gdev), n),
+                     global_draw(lambda m: torch.rand((m,), generator=generator, device=gdev), n))
         ksize, std, noise, u = (d.to(dev) for d in draws)
         ksize = ksize.to(torch.int64).view(n, 1, 1, 1, 1)
         index = torch.arange(max_ksize, device=dev).view(1, 1, -1, 1, 1)

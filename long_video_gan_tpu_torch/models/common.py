@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from ..ops.bias_act import activation_funcs, bias_act
 from ..ops.filters import kaiser_resample_filter, tent_filter
 from ..ops.upfirdn2d import downsample2d, upsample2d
+from ..parallel.mesh import mean_over_processes
 
 
 def normalize_2nd_moment(x: torch.Tensor, dim: Union[int, tuple] = 1,
@@ -128,7 +129,7 @@ class MagnitudeEMA(nn.Module):
 
     def forward(self, x: torch.Tensor, beta: float = 1.0) -> torch.Tensor:
         if beta != 1.0:
-            mag = x.detach().float().square().mean()
+            mag = mean_over_processes(x.detach().float().square().mean())
             self.magnitude_ema.add_((1.0 - beta) * (mag - self.magnitude_ema))
         return self.magnitude_ema.rsqrt()
 

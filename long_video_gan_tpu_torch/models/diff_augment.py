@@ -17,6 +17,8 @@ from typing import Any, Optional, Sequence
 
 import torch
 
+from ..parallel.mesh import global_draw
+
 
 def diff_augment(x: torch.Tensor, policy: str = "color,translation,cutout",
                  generator: Optional[torch.Generator] = None,
@@ -39,7 +41,8 @@ def _uniform(x: torch.Tensor, generator: Optional[torch.Generator], draw) -> tor
     if draw is None:
         if generator is None:
             raise ValueError("need the draws or a torch.Generator to draw them from")
-        draw = torch.rand((x.shape[0],), generator=generator, device=generator.device)
+        draw = global_draw(lambda m: torch.rand((m,), generator=generator,
+                                                device=generator.device), x.shape[0])
     return draw.to(x.device, x.dtype).view(-1, 1, 1, 1)
 
 
@@ -48,7 +51,8 @@ def _randint(n: int, low: int, high: int, generator: Optional[torch.Generator], 
     if draw is None:
         if generator is None:
             raise ValueError("need the draws or a torch.Generator to draw them from")
-        draw = [torch.randint(low, high, (n,), generator=generator, device=generator.device)
+        draw = [global_draw(lambda m: torch.randint(low, high, (m,), generator=generator,
+                                                    device=generator.device), n)
                 for _ in range(2)]
     return draw
 
@@ -90,8 +94,9 @@ def rand_cutout(x, generator=None, draw=None, ratio=0.5):
     if draw is None:
         if generator is None:
             raise ValueError("need the draws or a torch.Generator to draw them from")
-        draw = [torch.randint(0, size + (1 - cut % 2), (n,), generator=generator,
-                              device=generator.device)
+        draw = [global_draw(lambda m: torch.randint(0, size + (1 - cut % 2), (m,),
+                                                    generator=generator,
+                                                    device=generator.device), n)
                 for size, cut in ((h, cut_h), (w, cut_w))]
     off_x, off_y = (v.to(x.device, torch.int64).view(n, 1, 1) for v in draw)
     gx = torch.arange(h, device=x.device)[None, :, None]

@@ -23,6 +23,7 @@ from ..ops.bias_act import activation_funcs, bias_act
 from ..ops.conv2d_resample import conv2d_resample
 from ..ops.filters import setup_filter
 from ..ops.upfirdn2d import downsample2d
+from ..parallel.mesh import all_gather_batch, local_rows
 from .common import FullyConnectedLayer, SpatialBilinearUpsample, filter_buffer, randn_
 
 # ---------------------------------------------------------------------------
@@ -125,13 +126,21 @@ class DiscriminatorBlock(nn.Module):
 
 
 class MinibatchStdLayer(nn.Module):
-    """Append per-group feature-stddev channels."""
+    """Append per-group feature-stddev channels.
+
+    The groups are formed over the global batch, as the JAX layer's reshape
+    strides across the devices of the mesh: with several processes, every
+    process gathers the global batch, applies the layer to it and keeps its
+    own rows."""
 
     def __init__(self, group_size: Optional[int], num_channels: int = 1):
         super().__init__()
         self.group_size, self.num_channels = group_size, num_channels
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return local_rows(self._global(all_gather_batch(x)))
+
+    def _global(self, x: torch.Tensor) -> torch.Tensor:
         n, c, h, w = x.shape
         g = min(self.group_size, n) if self.group_size is not None else n
         f = self.num_channels

@@ -4,7 +4,8 @@ Counterpart of `long_video_gan_tpu/models/generator_lres.py`: an
 unconditional 3D-conv video GAN driven by a multi-timescale "blurred noise"
 temporal latent. Modulation is applied to the activations and demodulation to
 the conv output, so each modulated conv3d is one dense `conv3d`. Magnitude
-EMAs are buffers; half-precision layers run in bfloat16.
+EMAs are buffers; half-precision layers run in bfloat16, the others in their
+parameters' type (float32, or float64 in a `.double()` copy).
 """
 
 from __future__ import annotations
@@ -132,7 +133,8 @@ class BlurredNoise(nn.Module):
         n, c, t_in = noise.shape
         assert c == self.noise_channels
         # conv1d correlates, as the JAX package's conv does: no flip.
-        feats = F.conv1d(noise.reshape(n * c, 1, t_in).float(), self.blur_filters)
+        feats = F.conv1d(noise.reshape(n * c, 1, t_in).to(self.blur_filters.dtype),
+                         self.blur_filters)
         feats = feats * self.output_scale
         return feats.reshape(n, c * self.blur_widths, feats.shape[-1])
 
@@ -222,7 +224,8 @@ class Synthesis3dResBlock(nn.Module):
         latent_flat = latent.transpose(1, 2).reshape(batch * in_t, self.latent_dim)
         style_0 = self.affine_0(latent_flat).reshape(batch, in_t, -1).transpose(1, 2)
 
-        dtype = dtype if dtype is not None else (self.half_dtype if self.use_half else torch.float32)
+        dtype = dtype if dtype is not None else (self.half_dtype if self.use_half
+                                                 else self.weight_0.dtype)
         x = x.to(dtype)
 
         if self.magnitude_ema:
@@ -281,7 +284,8 @@ class ToRGB(nn.Module):
         latent_flat = latent.transpose(1, 2).reshape(batch * in_t, self.latent_dim)
         style = self.affine(latent_flat).reshape(batch, in_t, -1).transpose(1, 2)
 
-        dtype = dtype if dtype is not None else (self.half_dtype if self.use_half else torch.float32)
+        dtype = dtype if dtype is not None else (self.half_dtype if self.use_half
+                                                 else self.weight.dtype)
         x = x.to(dtype)
         gain = self.input_magnitude_ema(x, magnitude_ema_beta) if self.magnitude_ema else None
         y = temporal_modulated_conv3d(x, self.weight, style, gain, demodulate=False)

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from ..ops.filtered_lrelu import auto_impl_policy, filtered_lrelu
 from ..ops.filters import design_lowpass_filter, kaiser_resample_filter
 from ..ops.upfirdn2d import downsample2d, upsample2d
+from ..parallel.mesh import mean_over_processes
 from ..utils.misc import assert_shape
 from .common import FullyConnectedLayer, filter_buffer, randn_
 
@@ -94,7 +95,7 @@ class MappingNetwork(nn.Module):
             x = getattr(self, f"fc{idx}")(x)
 
         if update_emas:
-            mean = x.detach().mean(dim=0)
+            mean = mean_over_processes(x.detach().mean(dim=0))
             self.w_avg.copy_(mean + (self.w_avg - mean) * self.w_avg_beta)
 
         x = x[:, None, :].repeat(1, self.num_ws, 1)
@@ -216,7 +217,7 @@ class SynthesisLayer(nn.Module):
         assert_shape(w, (x.shape[0], self.w_dim))
 
         if update_emas:
-            mag = x.detach().float().square().mean()
+            mag = mean_over_processes(x.detach().float().square().mean())
             self.magnitude_ema.copy_(mag + (self.magnitude_ema - mag) * self.magnitude_ema_beta)
         input_gain = self.magnitude_ema.rsqrt()
 

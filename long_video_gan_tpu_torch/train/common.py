@@ -15,6 +15,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..parallel.mesh import global_draw
+
 
 class Adam:
     """Adam(b1=0, b2, eps=1e-8) over a list of parameters, with the learning
@@ -100,7 +102,8 @@ def lerp_trees(target: nn.Module, source: nn.Module, weight: float) -> None:
 def _uniform(generator: Optional[torch.Generator], n: int, device) -> torch.Tensor:
     if generator is None:
         raise ValueError("need the draws or a torch.Generator to draw them from")
-    return torch.rand((n,), generator=generator, device=generator.device).to(device)
+    return global_draw(lambda m: torch.rand((m,), generator=generator,
+                                            device=generator.device), n).to(device)
 
 
 def random_temporal_crop(video: torch.Tensor, seq_length: int,
@@ -115,8 +118,9 @@ def random_temporal_crop(video: torch.Tensor, seq_length: int,
         if t > seq_length:
             if generator is None:
                 raise ValueError("need t0 or a torch.Generator to draw it from")
-            t0 = torch.randint(0, t - seq_length + 1, (n,), generator=generator,
-                               device=generator.device)
+            t0 = global_draw(lambda m: torch.randint(0, t - seq_length + 1, (m,),
+                                                     generator=generator,
+                                                     device=generator.device), n)
         else:
             t0 = torch.zeros((n,), dtype=torch.int64)
     idx = t0.to(video.device, torch.int64)[:, None] + torch.arange(seq_length,

@@ -14,7 +14,12 @@ Beside what the JAX trainer does, written out for PyTorch:
     move in place once per micro-batch, in the JAX scan's order, and never
     inside a graph that autograd still needs;
   * a `torch.Generator` takes the place of each JAX key: the noise, the
-    temporal crop and the augmentations draw from it.
+    temporal crop and the augmentations draw from it;
+  * with several processes (`parallel`), each holds its share of the batch
+    and the reductions the JAX mesh inserts are written out: the gradients'
+    mean over the processes once per phase, the magnitude EMAs' global
+    batch mean, the statistics' sums; every batch-leading draw is taken at
+    the global batch size and sliced to the process's rows.
 """
 
 from __future__ import annotations
@@ -30,6 +35,8 @@ from ..models.common import init_weights_
 from ..models.diff_augment import diff_augment
 from ..models.discriminator_lres import VideoDiscriminator
 from ..models.generator_lres import VideoGenerator
+from ..parallel import mesh
+from ..parallel.multihost import local_batch_size
 from ..utils.misc import assert_shape
 from . import stats as stats_lib
 from .common import (Adam, collect_grads, ema_beta_schedule, lerp_trees, random_temporal_crop,
@@ -78,6 +85,11 @@ class LowResVideoGAN:
         self.G_ema = copy.deepcopy(self.G).requires_grad_(False)
         self.init_state(None)
 
+    @property
+    def local_batch(self) -> int:
+        """This process's share of `total_batch` (all of it in one process)."""
+        return local_batch_size(self.total_batch)
+
     # ------------------------------------------------------------------ init
 
     def init_state(self, generator: Optional[torch.Generator]) -> None:
@@ -112,6 +124,10 @@ class LowResVideoGAN:
         """Fake videos of `gen_seq_length` frames from injected white `noise`
         or noise drawn from `generator`, cropped to `seq_length` at random
         when G_random_temp_translate is on."""
+        if noise is None and generator is not None:
+            shape = self.G.noise_shape(1, self.gen_seq_length)[1:]
+            noise = mesh.global_draw(lambda m: torch.randn((m,) + shape, generator=generator,
+                                                           device=generator.device), batch_size)
         video = self.G(batch_size, self.gen_seq_length, magnitude_ema_beta=magnitude_ema_beta,
                        noise=noise, generator=generator)
         if self.G_random_temp_translate:
@@ -153,7 +169,9 @@ class LowResVideoGAN:
         """Scrub the accumulated gradients of `opt`'s parameters, clear
         them, and take one Adam step at the warmed-up learning rate."""
         params = opt.params
-        grads = scrub_grads(collect_grads(params), gain=gain)
+        # One mean over the processes, of the micro-batch loop's sums: JAX
+        # scrubs gradients that are already global means.
+        grads = scrub_grads(mesh.all_reduce_mean_(collect_grads(params)), gain=gain)
         for p in params:
             p.grad = None
         lrate = warmup_lrate(base_lrate, self.step, warmup_steps)
@@ -166,7 +184,7 @@ class LowResVideoGAN:
 
     def update_G(self, generator: torch.Generator) -> dict:
         accum = self.G_grad_accum
-        micro = self.total_batch // accum
+        micro = self.local_batch // accum
         self.G.requires_grad_(True)
         self.D.requires_grad_(False)
         zero = torch.zeros(3, device=self.device)
@@ -178,7 +196,7 @@ class LowResVideoGAN:
                 stats = {
                     "loss/G_score": stats["loss/G_score"] + stats_lib.moments(logits),
                     "loss/G_sign": stats["loss/G_sign"] + stats_lib.moments(torch.sign(logits)),
-                    "loss/G_loss": stats["loss/G_loss"] + stats_lib.scalar_moments(loss),
+                    "loss/G_loss": stats["loss/G_loss"] + stats_lib.loss_moments(loss),
                 }
         finally:
             self.D.requires_grad_(True)
@@ -187,7 +205,7 @@ class LowResVideoGAN:
         return stats
 
     def update_D(self, generator: torch.Generator, real_video: torch.Tensor) -> dict:
-        assert_shape(real_video, (self.total_batch, self.channels, self.seq_length,
+        assert_shape(real_video, (self.local_batch, self.channels, self.seq_length,
                                   self.height, self.width))
         accum = self.D_grad_accum
         self.D.requires_grad_(True)
@@ -206,7 +224,7 @@ class LowResVideoGAN:
                 "loss/D_score_real": stats["loss/D_score_real"] + stats_lib.moments(rlg),
                 "loss/D_sign_fake": stats["loss/D_sign_fake"] + stats_lib.moments(torch.sign(flg)),
                 "loss/D_sign_real": stats["loss/D_sign_real"] + stats_lib.moments(torch.sign(rlg)),
-                "loss/D_loss": stats["loss/D_loss"] + stats_lib.scalar_moments(loss),
+                "loss/D_loss": stats["loss/D_loss"] + stats_lib.loss_moments(loss),
             }
         lrate = self._apply(self.opt_D, 1.0 / accum, self.D_lrate, self.D_warmup_steps)
         stats["progress/D_lrate"] = stats_lib.scalar_moments(lrate)
@@ -224,7 +242,7 @@ class LowResVideoGAN:
             loss.backward()
             stats = {
                 "loss/r1_penalty": stats["loss/r1_penalty"] + stats_lib.moments(penalty),
-                "loss/r1_loss": stats["loss/r1_loss"] + stats_lib.scalar_moments(loss),
+                "loss/r1_loss": stats["loss/r1_loss"] + stats_lib.loss_moments(loss),
             }
         self._apply(self.opt_D, gain / accum, self.D_lrate, self.D_warmup_steps)
         return stats

@@ -16,7 +16,13 @@ Beside what the JAX trainer does, written out for PyTorch:
     graph that autograd still needs;
   * a `torch.Generator` takes the place of each JAX key. z, the ADA and
     in_augment draws and the lr-conditioning dropout are drawn from it in the
-    JAX package's order.
+    JAX package's order;
+  * with several processes (`parallel`), each holds its share of the batch
+    and the reductions the JAX mesh inserts are written out: the gradients'
+    mean over the processes once per phase, the magnitude EMAs' and w_avg's
+    global batch means, ADA's real-sign moments and the statistics' sums;
+    every batch-leading draw is taken at the global batch size and sliced to
+    the process's rows.
 """
 
 from __future__ import annotations
@@ -32,6 +38,8 @@ from ..models.ada_augment import AugmentPipe
 from ..models.common import init_weights_
 from ..models.discriminator_sres import VideoDiscriminator
 from ..models.generator_sres import VideoGenerator
+from ..parallel import mesh
+from ..parallel.multihost import local_batch_size
 from ..utils.misc import assert_shape
 from . import stats as stats_lib
 from .common import Adam, collect_grads, ema_beta_schedule, lerp_trees, scrub_grads, warmup_lrate
@@ -106,6 +114,11 @@ class SuperResVideoGAN:
                 margin_frac=self.in_augment_margin_frac)
         self.init_state(None)
 
+    @property
+    def local_batch(self) -> int:
+        """This process's share of `total_batch` (all of it in one process)."""
+        return local_batch_size(self.total_batch)
+
     # ------------------------------------------------------------------ init
 
     def init_state(self, generator: Optional[torch.Generator]) -> None:
@@ -143,8 +156,9 @@ class SuperResVideoGAN:
         lr_up, hr_video = both.chunk(2, dim=2)
 
         if self.lr_cond_prob < 1:
-            draw = torch.rand((lr_up.shape[0], 1, 1, 1, 1), generator=generator,
-                              device=generator.device).to(lr_up.device)
+            draw = mesh.global_draw(lambda m: torch.rand((m, 1, 1, 1, 1), generator=generator,
+                                                         device=generator.device),
+                                    lr_up.shape[0]).to(lr_up.device)
             lr_up = lr_up * (draw < self.lr_cond_prob).to(lr_up.dtype)
         return self.D(lr_up, hr_video)
 
@@ -154,8 +168,9 @@ class SuperResVideoGAN:
         return self.in_augment(generator, lr_video, self.in_augment_p)
 
     def _draw_z(self, generator: torch.Generator, n: int) -> torch.Tensor:
-        return torch.randn((n, self.G.latent_z_dim), generator=generator,
-                           device=generator.device).to(self.device)
+        return mesh.global_draw(lambda m: torch.randn((m, self.G.latent_z_dim),
+                                                      generator=generator,
+                                                      device=generator.device), n).to(self.device)
 
     def _chunks(self, x: torch.Tensor, accum: int) -> tuple[torch.Tensor, ...]:
         assert x.shape[0] % accum == 0, (x.shape, accum)
@@ -198,7 +213,9 @@ class SuperResVideoGAN:
         """Scrub the accumulated gradients of `opt`'s parameters, clear
         them, and take one Adam step at the warmed-up learning rate."""
         params = opt.params
-        grads = scrub_grads(collect_grads(params), gain=gain)
+        # One mean over the processes, of the micro-batch loop's sums: JAX
+        # scrubs gradients that are already global means.
+        grads = scrub_grads(mesh.all_reduce_mean_(collect_grads(params)), gain=gain)
         for p in params:
             p.grad = None
         lrate = warmup_lrate(base_lrate, self.step, warmup_steps)
@@ -206,7 +223,7 @@ class SuperResVideoGAN:
         return lrate
 
     def update_G(self, generator: torch.Generator, lr_video: torch.Tensor) -> dict:
-        assert_shape(lr_video, (self.total_batch, self.channels, self.context_seq_length,
+        assert_shape(lr_video, (self.local_batch, self.channels, self.context_seq_length,
                                 self.lr_height, self.lr_width))
         lr_video = self._apply_in_augment(generator, lr_video)
         accum = self.G_grad_accum
@@ -220,7 +237,7 @@ class SuperResVideoGAN:
             stats = {
                 "loss/G_score": stats["loss/G_score"] + stats_lib.moments(logits),
                 "loss/G_sign": stats["loss/G_sign"] + stats_lib.moments(torch.sign(logits)),
-                "loss/G_loss": stats["loss/G_loss"] + stats_lib.scalar_moments(loss),
+                "loss/G_loss": stats["loss/G_loss"] + stats_lib.loss_moments(loss),
             }
         self.D.requires_grad_(True)
         lrate = self._apply(self.opt_G, 1.0 / accum, self.G_lrate, self.G_warmup_steps)
@@ -229,9 +246,9 @@ class SuperResVideoGAN:
 
     def update_D(self, generator: torch.Generator, fake_lr_video: torch.Tensor,
                  real_lr_video: torch.Tensor, real_hr_video: torch.Tensor) -> dict:
-        assert_shape(fake_lr_video, (self.total_batch, self.channels, self.context_seq_length,
+        assert_shape(fake_lr_video, (self.local_batch, self.channels, self.context_seq_length,
                                      self.lr_height, self.lr_width))
-        assert_shape(real_hr_video, (self.total_batch, self.channels, self.seq_length,
+        assert_shape(real_hr_video, (self.local_batch, self.channels, self.seq_length,
                                      self.hr_height, self.hr_width))
         fake_lr_video = self._apply_in_augment(generator, fake_lr_video)
         real_lr_video = self._apply_in_augment(generator, real_lr_video)
@@ -256,18 +273,20 @@ class SuperResVideoGAN:
                 "loss/D_score_real": stats["loss/D_score_real"] + stats_lib.moments(rlg),
                 "loss/D_sign_fake": stats["loss/D_sign_fake"] + stats_lib.moments(torch.sign(flg)),
                 "loss/D_sign_real": stats["loss/D_sign_real"] + stats_lib.moments(torch.sign(rlg)),
-                "loss/D_loss": stats["loss/D_loss"] + stats_lib.scalar_moments(loss),
+                "loss/D_loss": stats["loss/D_loss"] + stats_lib.loss_moments(loss),
             }
         lrate = self._apply(self.opt_D, 1.0 / accum, self.D_lrate, self.D_warmup_steps)
-        # Feed the ADA controller.
-        self.sign_real_moments = self.sign_real_moments + stats["loss/D_sign_real"]
+        # Feed the ADA controller the global batch's real-logit signs, so that
+        # every process moves ada_p alike.
+        self.sign_real_moments = self.sign_real_moments + mesh.all_reduce_sum_(
+            [stats["loss/D_sign_real"].clone()])[0]
         stats["progress/D_lrate"] = stats_lib.scalar_moments(lrate)
         return stats
 
     def update_r1(self, generator: torch.Generator, lr_video: torch.Tensor,
                   hr_video: torch.Tensor, gain: float = 1.0) -> dict:
         assert self.r1_gamma is not None
-        assert_shape(lr_video, (self.total_batch, self.channels, self.seq_length,
+        assert_shape(lr_video, (self.local_batch, self.channels, self.seq_length,
                                 self.lr_height, self.lr_width))
         lr_video = self._apply_in_augment(generator, lr_video)
         accum = self.D_grad_accum
@@ -279,7 +298,7 @@ class SuperResVideoGAN:
             loss.backward()
             stats = {
                 "loss/r1_penalty": stats["loss/r1_penalty"] + stats_lib.moments(penalty),
-                "loss/r1_loss": stats["loss/r1_loss"] + stats_lib.scalar_moments(loss),
+                "loss/r1_loss": stats["loss/r1_loss"] + stats_lib.loss_moments(loss),
             }
         self._apply(self.opt_D, gain / accum, self.D_lrate, self.D_warmup_steps)
         return stats

@@ -24,6 +24,7 @@ import torch
 from ..io.checkpoint import load_checkpoint, save_checkpoint
 from ..io.convert_torch import (flatten_variables, load_jax_variables, module_to_variables,
                                 torch_key_to_flax_path)
+from ..parallel import mesh
 from .common import Adam
 
 
@@ -118,3 +119,11 @@ def load_train_checkpoint(path: str, gan) -> dict[str, Any]:
     gan_from_tree(gan, tree)
     gan.step = int(config.get("step", gan.step))
     return config
+
+
+def replicate_train_state(gan) -> None:
+    """Rank 0's train state on every process: G, D, G_ema, both Adam states
+    and, for the sres trainer, ADA's (the JAX CLIs' `replicate(state, mesh)`)."""
+    mesh.replicate(gan.G, gan.D, gan.G_ema, gan.opt_G.mu, gan.opt_G.nu, gan.opt_D.mu,
+                   gan.opt_D.nu, *([gan.ada_p, gan.sign_real_moments] if hasattr(gan, "ada_p")
+                                   else []))

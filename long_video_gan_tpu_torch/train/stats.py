@@ -3,7 +3,8 @@
 Counterpart of `long_video_gan_tpu/train/stats.py`: update steps return dicts
 of (count, sum, sum of squares) moment triples, and a host-side Collector
 accumulates them between ticks and reports mean/std over the window since the
-last `update()`.
+last `update()`. With several processes, `update()` sums each window's
+triples over them, so the means are those of the global batch.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ import time
 
 import numpy as np
 import torch
+
+from ..parallel import mesh
 
 
 def moments(x: torch.Tensor) -> torch.Tensor:
@@ -26,6 +29,12 @@ def moments(x: torch.Tensor) -> torch.Tensor:
 def scalar_moments(value) -> torch.Tensor:
     v = torch.as_tensor(value, dtype=torch.float32).detach()
     return torch.stack([torch.ones_like(v), v, v.square()])
+
+
+def loss_moments(loss: torch.Tensor) -> torch.Tensor:
+    """A micro-batch loss's moments, of its mean over the processes, so that
+    the statistics match one process's at the same global batch."""
+    return scalar_moments(mesh.mean_over_processes(loss))
 
 
 class Collector:
@@ -48,10 +57,17 @@ class Collector:
             self._totals[name] = self._totals.get(name, np.zeros(3)) + m
 
     def update(self) -> None:
-        """Snapshot the window: deltas since the last update."""
+        """Snapshot the window: deltas since the last update, summed over
+        the processes (one flat all_reduce over the sorted names; every
+        process reports the same names)."""
         self._deltas = {name: total - self._prev.get(name, np.zeros(3))
                         for name, total in self._totals.items()}
         self._prev = {name: total.copy() for name, total in self._totals.items()}
+        if mesh.distributed() and self._deltas:
+            names = sorted(self._deltas)
+            flat = torch.from_numpy(np.stack([self._deltas[k] for k in names]))
+            summed = mesh.all_reduce_sum_([flat.to(mesh.comm_device())])[0].cpu().numpy()
+            self._deltas.update(zip(names, summed))
 
     def names(self):
         return list(self._deltas.keys())
@@ -85,7 +101,9 @@ def write_tick(collector: Collector, stats_fp, step: int, tick: int, steps_per_t
                tick_start: float, start_time: float, device: torch.device) -> dict:
     """Append the tick's record (the statistics' means since the last tick,
     sec/step, peak device memory) to the open stats.jsonl `stats_fp` and
-    print its summary; the trainer CLIs' per-tick report."""
+    print its summary; the trainer CLIs' per-tick report. Every process
+    calls it (the window's sum is a collective); one with `stats_fp` None
+    writes and prints nothing."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     sec_per_step = (time.time() - tick_start) / steps_per_tick
@@ -95,6 +113,8 @@ def write_tick(collector: Collector, stats_fp, step: int, tick: int, steps_per_t
                   total_sec=time.time() - start_time, timestamp=time.time(),
                   peak_device_mem_gb=(torch.cuda.max_memory_allocated(device) / 2**30
                                       if device.type == "cuda" else None))
+    if stats_fp is None:
+        return record
     stats_fp.write(json.dumps(record) + "\n")
     stats_fp.flush()
     print(f"step {step:<8d} tick {tick:<5d} sec/step {sec_per_step:<7.3f} "

@@ -20,9 +20,17 @@ its own (and `--resume` reads either's), and `samples/real-long.mp4` and
     python -m long_video_gan_tpu_torch.train_lres ... -m fvd2048_128f --metric-detector stub:64
 
 Each step draws from a generator seeded from (seed, step), so a resumed run
-draws at step s what an uninterrupted one draws there. Not ported: the JAX
-CLI's XLA memory options (`--remat`, `--block-remat`, `--unroll-accum`),
-`--wandb` and several processes.
+draws at step s what an uninterrupted one draws there. Several processes,
+one per GPU, train one run over torch.distributed (NCCL; gloo on the CPU):
+`--batch` is the global batch, split over them, and `--grad-accum` the
+micro-batches per step of each; every process must pass the same `--seed`,
+and only rank 0 writes.
+
+    torchrun --nproc_per_node=8 -m long_video_gan_tpu_torch.train_lres \
+        --dataset datasets/horseback --batch 64 --grad-accum 1 --seed 1
+
+Not ported: the JAX CLI's XLA memory options (`--remat`, `--block-remat`,
+`--unroll-accum`) and `--wandb`.
 """
 
 from __future__ import annotations
@@ -37,6 +45,9 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
+from .parallel import mesh
+from .parallel.multihost import (is_main_process, local_device,
+                                 maybe_initialize_distributed, world_size)
 from .train.common import step_generator
 from .train.gan_lres import LowResVideoGAN
 from .train.stats import Collector, write_tick
@@ -112,24 +123,28 @@ def train(c: dict, run_dir: str, seed: int, device: torch.device,
     from .data.loader import get_infinite_data_iter
     from .io.checkpoint import save_generator
     from .models.generator_lres import sample_video_segments
-    from .train.state import load_train_checkpoint, save_train_checkpoint
+    from .train.state import (load_train_checkpoint, replicate_train_state,
+                              save_train_checkpoint)
     from .utils.video import write_video_grid
 
     start_time = time.time()
+    main_process = is_main_process()
     ckpt_dir = Path(run_dir, "checkpoints")
     samples_dir = Path(run_dir, "samples")
-    ckpt_dir.mkdir(parents=True, exist_ok=True)
-    samples_dir.mkdir(parents=True, exist_ok=True)
+    if main_process:
+        ckpt_dir.mkdir(parents=True, exist_ok=True)
+        samples_dir.mkdir(parents=True, exist_ok=True)
 
     print(f"Loading video dataset from {c['dataset_dir']} ...")
     dataset = VideoDataset(c["dataset_dir"], c["seq_length"], c["height"], c["width"],
                            x_flip=c["x_flip"])
     result_dataset = VideoDataset(c["dataset_dir"], c["result_seq_length"], c["height"],
                                   c["width"], x_flip=c["x_flip"])
-    data_iter = get_infinite_data_iter(dataset, batch_size=c["total_batch"], seed=seed,
+    data_iter = get_infinite_data_iter(dataset, seed=seed, **mesh.shard_batch(c["total_batch"]),
                                        **c["loader_kwargs"])
-    real = result_dataset.sample(0, np.random.default_rng(seed))["video"]
-    write_video_grid(real[None], samples_dir / "real-long.mp4")
+    if main_process:
+        real = result_dataset.sample(0, np.random.default_rng(seed))["video"]
+        write_video_grid(real[None], samples_dir / "real-long.mp4")
 
     print("Constructing low res GAN model ...")
     gan = make_gan(c, device)
@@ -138,11 +153,12 @@ def train(c: dict, run_dir: str, seed: int, device: torch.device,
     if resume:
         start_step = int(load_train_checkpoint(resume, gan)["step"])
         print(f"Resumed from {resume} at step {start_step}")
+    replicate_train_state(gan)
     G_config = generator_config(c)
 
     batches = (torch.from_numpy(sample["video"]).to(device) for sample in data_iter)
     collector = Collector()
-    stats_fp = open(Path(run_dir, "stats.jsonl"), "at")
+    stats_fp = open(Path(run_dir, "stats.jsonl"), "at") if main_process else None
     tick_start = time.time()
     print(f"Training for steps {start_step:,} - {c['total_steps']:,}\n")
     for step in range(start_step, c["total_steps"] + 1):
@@ -151,7 +167,7 @@ def train(c: dict, run_dir: str, seed: int, device: torch.device,
             if step > start_step:
                 write_tick(collector, stats_fp, step, tick, c["steps_per_tick"], tick_start,
                            start_time, device)
-            if tick % c["ticks_per_G_ema_ckpt"] == 0:
+            if tick % c["ticks_per_G_ema_ckpt"] == 0 and main_process:
                 save_generator(str(ckpt_dir / f"ckpt-{step:08d}-G-ema.lvg"), gan.G_ema, G_config)
                 if tick % c["ticks_per_train_ckpt"] == 0:
                     save_train_checkpoint(str(ckpt_dir / f"ckpt-{step:08d}-train.lvg"), gan)
@@ -171,6 +187,8 @@ def train(c: dict, run_dir: str, seed: int, device: torch.device,
                         max_items_override=c.get("metric_items"),
                         dataset_kwargs=dict(dataset_dir=c["dataset_dir"], seq_length=1,
                                             height=c["height"], width=c["width"]))
+            # The other processes wait here while rank 0 writes and scores.
+            mesh.barrier()
             tick_start = time.time()
 
         if step == c["total_steps"]:
@@ -181,7 +199,8 @@ def train(c: dict, run_dir: str, seed: int, device: torch.device,
             collector.report(stats)
 
     data_iter.close()
-    stats_fp.close()
+    if stats_fp is not None:
+        stats_fp.close()
 
 
 def set_matmul_precision(precision: str) -> None:
@@ -202,11 +221,12 @@ def main(argv: Optional[list[str]] = None) -> str:
                                                  "network with the PyTorch port.")
     parser.add_argument("--outdir", default="runs/lres")
     parser.add_argument("--dataset", dest="dataset_dir", required=True)
-    parser.add_argument("--batch", dest="total_batch", type=int, default=64)
+    parser.add_argument("--batch", dest="total_batch", type=int, default=64,
+                        help="global batch, split over the processes")
     parser.add_argument("--grad-accum", type=int, default=2,
-                        help="micro-batches per step. Pass 4 for the full preset at batch 64 "
-                             "in f32 on an 80 GB H100: the default 2 (the reference's) runs "
-                             "out of memory there.")
+                        help="micro-batches per step of each process. Pass 4 for the full "
+                             "preset at batch 64 in f32 on one 80 GB H100: the default 2 (the "
+                             "reference's) runs out of memory there.")
     parser.add_argument("--gamma", dest="r1_gamma", type=float, default=1.0)
     parser.add_argument("--metric", "-m", dest="metrics", action="append", default=[],
                         help="metric to compute at every G_ema checkpoint (repeatable), "
@@ -219,7 +239,9 @@ def main(argv: Optional[list[str]] = None) -> str:
                         help="cap real/generated feature counts of in-training metrics "
                              "(smoke runs; default: each metric's full protocol)")
     parser.add_argument("--preset", choices=["full", "tiny"], default="full")
-    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--seed", type=int, default=None,
+                        help="the run's seed (default 0); every process of a run needs the "
+                             "same, so several processes must pass it")
     parser.add_argument("--resume", default=None,
                         help="train checkpoint (ckpt-*-train.lvg, the port's or the JAX "
                              "package's) to continue from, at the step in its header")
@@ -235,6 +257,14 @@ def main(argv: Optional[list[str]] = None) -> str:
                         help="cuda (default) or cpu; without a CUDA device, pass cpu")
     args = parser.parse_args(argv)
     device = cli_device(args.device)
+    # Several processes (env-gated; a single process without the launcher's
+    # variables): parallel/multihost.py's docstring has the launch recipes.
+    maybe_initialize_distributed(device)
+    device = local_device(device)
+    if args.seed is None:
+        # Every process must use the same seed, so none can be drawn apart.
+        assert world_size() == 1, "multi-host runs must pass --seed"
+        args.seed = 0
     set_matmul_precision(args.matmul_precision)
 
     from .utils.video import get_next_run_dir
@@ -248,12 +278,16 @@ def main(argv: Optional[list[str]] = None) -> str:
     c["matmul_precision"] = args.matmul_precision
     desc = (f"{Path(args.dataset_dir).name}-{args.total_batch}batch-{args.grad_accum}accum-"
             f"{args.r1_gamma}gamma")
-    run_dir = get_next_run_dir(args.outdir, desc=desc)
-    Path(run_dir).mkdir(parents=True, exist_ok=True)
-    print(f"Run dir: {run_dir}  seed: {args.seed}")
-    with open(Path(run_dir, "config.json"), "w") as fp:
-        json.dump(dict(c, run_dir=run_dir, seed=args.seed, device=args.device,
-                       resume=args.resume), fp, indent=2)
+    # Rank 0 picks the run directory and tells the others: each process
+    # counting the directories itself could count rank 0's new one.
+    run_dir = mesh.broadcast_object(get_next_run_dir(args.outdir, desc=desc)
+                                    if is_main_process() else None)
+    if is_main_process():
+        Path(run_dir).mkdir(parents=True, exist_ok=True)
+        print(f"Run dir: {run_dir}  seed: {args.seed}  processes: {world_size()}")
+        with open(Path(run_dir, "config.json"), "w") as fp:
+            json.dump(dict(c, run_dir=run_dir, seed=args.seed, device=args.device,
+                           resume=args.resume, processes=world_size()), fp, indent=2)
     train(c, run_dir, args.seed, device, args.resume)
     return run_dir
 

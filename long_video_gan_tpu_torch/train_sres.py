@@ -22,8 +22,16 @@ of the dataset, the cond-dataset protocol), into `metric-<name>.jsonl`.
 
 Data comes through the port's `data` package (ZIP shards of JPEG frames).
 Each step draws from a generator seeded from (seed, step), so a resumed run
-draws at step s what an uninterrupted one draws there. Several processes and
-wandb are not ported yet.
+draws at step s what an uninterrupted one draws there. Several processes,
+one per GPU, train one run over torch.distributed (NCCL; gloo on the CPU):
+`--batch` is the global batch, split over them, and `--grad-accum` the
+micro-batches per step of each; every process must pass the same `--seed`,
+and only rank 0 writes.
+
+    torchrun --nproc_per_node=8 -m long_video_gan_tpu_torch.train_sres \
+        --dataset datasets/horseback --batch 32 --seed 1
+
+wandb is not ported.
 """
 
 from __future__ import annotations
@@ -38,6 +46,9 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
+from .parallel import mesh
+from .parallel.multihost import (is_main_process, local_device,
+                                 maybe_initialize_distributed, world_size)
 from .train.common import step_generator
 from .train.gan_sres import SuperResVideoGAN
 from .train.stats import Collector, write_tick
@@ -131,31 +142,35 @@ def train(c: dict, run_dir: str, seed: int, device: torch.device,
     from .data.loader import get_infinite_data_iter
     from .io.checkpoint import save_generator
     from .models.generator_sres import sample_video_segments
-    from .train.state import load_train_checkpoint, save_train_checkpoint
+    from .train.state import (load_train_checkpoint, replicate_train_state,
+                              save_train_checkpoint)
     from .utils.video import write_video_grid
 
     start_time = time.time()
+    main_process = is_main_process()
     ckpt_dir = Path(run_dir, "checkpoints")
     samples_dir = Path(run_dir, "samples")
-    ckpt_dir.mkdir(parents=True, exist_ok=True)
-    samples_dir.mkdir(parents=True, exist_ok=True)
+    if main_process:
+        ckpt_dir.mkdir(parents=True, exist_ok=True)
+        samples_dir.mkdir(parents=True, exist_ok=True)
 
     ctx = c["temporal_context"]
     context_len = c["seq_length"] + 2 * ctx
     print(f"Loading paired video dataset from {c['dataset_dir']} ...")
     dataset = VideoDatasetTwoRes(c["dataset_dir"], context_len, c["lr_height"], c["lr_width"],
                                  c["hr_height"], c["hr_width"], x_flip=c["x_flip"])
-    data_iter = get_infinite_data_iter(dataset, batch_size=c["total_batch"], seed=seed,
+    data_iter = get_infinite_data_iter(dataset, seed=seed, **mesh.shard_batch(c["total_batch"]),
                                        **c["loader_kwargs"])
     result_dataset = VideoDatasetTwoRes(
         c["dataset_dir"], c["result_seq_length"] + 2 * ctx, c["lr_height"], c["lr_width"],
         c["hr_height"], c["hr_width"], x_flip=c["x_flip"])
     sample0 = result_dataset.sample(0, np.random.default_rng(seed))
     result_lr = torch.from_numpy(sample0["lr_video"][None]).to(device)
-    write_video_grid(sample0["lr_video"][None][:, :, ctx:-ctx or None],
-                     samples_dir / "real-lr.mp4")
-    write_video_grid(sample0["hr_video"][None][:, :, ctx:-ctx or None],
-                     samples_dir / "real-hr.mp4")
+    if main_process:
+        write_video_grid(sample0["lr_video"][None][:, :, ctx:-ctx or None],
+                         samples_dir / "real-lr.mp4")
+        write_video_grid(sample0["hr_video"][None][:, :, ctx:-ctx or None],
+                         samples_dir / "real-hr.mp4")
 
     print("Constructing super res GAN model ...")
     gan = make_gan(c, device)
@@ -164,12 +179,13 @@ def train(c: dict, run_dir: str, seed: int, device: torch.device,
     if resume:
         start_step = int(load_train_checkpoint(resume, gan)["step"])
         print(f"Resumed from {resume} at step {start_step}")
+    replicate_train_state(gan)
     G_config = generator_config(c)
 
     batches = ({k: torch.from_numpy(v).to(device) for k, v in sample.items()
                 if k in ("lr_video", "hr_video")} for sample in data_iter)
     collector = Collector()
-    stats_fp = open(Path(run_dir, "stats.jsonl"), "at")
+    stats_fp = open(Path(run_dir, "stats.jsonl"), "at") if main_process else None
     tick_start = time.time()
     print(f"Training for steps {start_step:,} - {c['total_steps']:,}\n")
     for step in range(start_step, c["total_steps"] + 1):
@@ -178,7 +194,7 @@ def train(c: dict, run_dir: str, seed: int, device: torch.device,
             if step > start_step:
                 write_tick(collector, stats_fp, step, tick, c["steps_per_tick"], tick_start,
                            start_time, device)
-            if tick % c["ticks_per_G_ema_ckpt"] == 0:
+            if tick % c["ticks_per_G_ema_ckpt"] == 0 and main_process:
                 save_generator(str(ckpt_dir / f"ckpt-{step:08d}-G-ema.lvg"), gan.G_ema, G_config)
                 if tick % c["ticks_per_train_ckpt"] == 0:
                     save_train_checkpoint(str(ckpt_dir / f"ckpt-{step:08d}-train.lvg"), gan)
@@ -201,6 +217,8 @@ def train(c: dict, run_dir: str, seed: int, device: torch.device,
                                             height=c["hr_height"], width=c["hr_width"]),
                         cond_dataset_kwargs=dict(dataset_dir=c["dataset_dir"], seq_length=1,
                                                  height=c["lr_height"], width=c["lr_width"]))
+            # The other processes wait here while rank 0 writes and scores.
+            mesh.barrier()
             tick_start = time.time()
 
         if step == c["total_steps"]:
@@ -211,7 +229,8 @@ def train(c: dict, run_dir: str, seed: int, device: torch.device,
             collector.report(stats)
 
     data_iter.close()
-    stats_fp.close()
+    if stats_fp is not None:
+        stats_fp.close()
 
 
 def main(argv: Optional[list[str]] = None) -> str:
@@ -221,11 +240,12 @@ def main(argv: Optional[list[str]] = None) -> str:
                                                  "network with the PyTorch port.")
     parser.add_argument("--outdir", default="runs/sres")
     parser.add_argument("--dataset", dest="dataset_dir", required=True)
-    parser.add_argument("--batch", dest="total_batch", type=int, default=32)
+    parser.add_argument("--batch", dest="total_batch", type=int, default=32,
+                        help="global batch, split over the processes")
     parser.add_argument("--grad-accum", type=int, default=1,
-                        help="micro-batches per step (default 1, as the reference). The full "
-                             "preset at batch 32 needs 2 or more on an 80 GB H100: a "
-                             "micro-batch of 32 runs out of memory.")
+                        help="micro-batches per step of each process (default 1, as the "
+                             "reference). The full preset at batch 32 needs 2 or more on one "
+                             "80 GB H100: a micro-batch of 32 runs out of memory.")
     parser.add_argument("--gamma", dest="r1_gamma", type=float, default=1.0)
     parser.add_argument("--metric", "-m", dest="metrics", action="append", default=[],
                         help="metric to compute at every G_ema checkpoint (repeatable), "
@@ -238,7 +258,9 @@ def main(argv: Optional[list[str]] = None) -> str:
                         help="cap real/generated feature counts of in-training metrics "
                              "(smoke runs; default: each metric's full protocol)")
     parser.add_argument("--preset", choices=["full", "tiny"], default="full")
-    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--seed", type=int, default=None,
+                        help="the run's seed (default 0); every process of a run needs the "
+                             "same, so several processes must pass it")
     parser.add_argument("--resume", default=None,
                         help="train checkpoint (ckpt-*-train.lvg, the port's or the JAX "
                              "package's) to continue from, at the step in its header")
@@ -247,6 +269,14 @@ def main(argv: Optional[list[str]] = None) -> str:
                         help="cuda (default) or cpu; without a CUDA device, pass cpu")
     args = parser.parse_args(argv)
     device = cli_device(args.device)
+    # Several processes (env-gated; a single process without the launcher's
+    # variables): parallel/multihost.py's docstring has the launch recipes.
+    maybe_initialize_distributed(device)
+    device = local_device(device)
+    if args.seed is None:
+        # Every process must use the same seed, so none can be drawn apart.
+        assert world_size() == 1, "multi-host runs must pass --seed"
+        args.seed = 0
 
     from .utils.video import get_next_run_dir
 
@@ -258,12 +288,16 @@ def main(argv: Optional[list[str]] = None) -> str:
              metric_items=args.metric_items)
     desc = (f"{Path(args.dataset_dir).name}-{args.total_batch}batch-{args.grad_accum}accum-"
             f"{args.r1_gamma}gamma")
-    run_dir = get_next_run_dir(args.outdir, desc=desc)
-    Path(run_dir).mkdir(parents=True, exist_ok=True)
-    print(f"Run dir: {run_dir}  seed: {args.seed}")
-    with open(Path(run_dir, "config.json"), "w") as fp:
-        json.dump(dict(c, run_dir=run_dir, seed=args.seed, device=args.device,
-                       resume=args.resume), fp, indent=2)
+    # Rank 0 picks the run directory and tells the others: each process
+    # counting the directories itself could count rank 0's new one.
+    run_dir = mesh.broadcast_object(get_next_run_dir(args.outdir, desc=desc)
+                                    if is_main_process() else None)
+    if is_main_process():
+        Path(run_dir).mkdir(parents=True, exist_ok=True)
+        print(f"Run dir: {run_dir}  seed: {args.seed}  processes: {world_size()}")
+        with open(Path(run_dir, "config.json"), "w") as fp:
+            json.dump(dict(c, run_dir=run_dir, seed=args.seed, device=args.device,
+                           resume=args.resume, processes=world_size()), fp, indent=2)
     train(c, run_dir, args.seed, device, args.resume)
     return run_dir
 
