@@ -4,9 +4,10 @@ source and two f32 ones, K3a and K3b one tensor-core source for both types,
 K4 and K5 another), prints the tensor-core kernels' registers, spills and HMMA
 instruction counts (K1/K2 in bf16; K3a/K3b and K4/K5, each type), holds each
 kernel against its plain version at every layer geometry its paths give it
-(K1 forward at generation and training size, also against the f32 composed
-op; K2 backward at training size; K3a forward at generation and training
-size, K3b backward at training size; K4 and K5 at generation size), with the
+(K1 forward at generation, per-layer-table and training size, also against
+the f32 composed op; K2 backward at training size; K3a forward at generation,
+per-layer-table and training size, K3b backward at training size; K4 and K5
+at generation size), with the
 tensor-core kernels' executed rate and per-layer tables of time, bound and
 share, then drives each path through the entry points a user calls:
 
@@ -32,7 +33,14 @@ share, then drives each path through the entry points a user calls:
 - two processes on the one card in a gloo group over CUDA tensors: the
   collectives gloo carries there, one step of each tiny trainer against one
   process's (`parallel.selfcheck`), and time-sharded lres synthesis at full
-  width against the unsharded pass over the same noise.
+  width against the unsharded pass over the same noise;
+- the measurement tools at full width through their functions:
+  `bench_train` (sres with K1/K2, lres) at its swept defaults,
+  `scripts/torch_profile_train.py`'s phase table and `torch.profiler` trace
+  of one sres cycle (K1 and K2 counted in the trace as by the counters),
+  `scripts/torch_bench_layers.py`'s per-layer table on `auto` (K1) and
+  `fused` (K3a) at 24 frames, and `scripts/torch_bench_prefetch.py` at
+  prefetch 0, 1 and 2 (K1).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --compare PARENT.log   # also the times of another
@@ -90,6 +98,15 @@ DP_RANKS = 2           # processes on the one card over gloo
 DP_RTOL = 1e-5         # their tiny steps against one process's (parallel.selfcheck's bar)
 TEMPORAL_FRAMES = 1024     # time-sharded lres synthesis over DP_RANKS ranks
 TEMPORAL_RTOL, TEMPORAL_ATOL = 1e-4, 2e-6   # tests/test_temporal_sharding.py's bar
+BENCH_SRES_STEPS = 3   # bench_train's timed steps after its 2 warm-ups: R1 runs at step 0,
+BENCH_LRES_STEPS = 1   # so sres's median is a step without it; lres's one step has it
+PROFILE_STEPS = 1      # torch_profile_train's timed calls per phase
+LAYER_FRAMES = 24      # torch_bench_layers: a 16-frame segment with 2 x 4 context
+LAYER_IMPLS = ("auto", "fused")
+LAYER_ITERS = 20
+PREFETCH_DEPTHS = (0, 1, 2)   # torch_bench_prefetch: depths, segments, best of
+PREFETCH_SEGMENTS = 8
+PREFETCH_ITERS = 3
 SEED = 0
 
 # The TPU kernel each one replaces (function that reaches pl.pallas_call).
@@ -196,10 +213,10 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cpu").manual_seed(SEED)
     layers = selftest.plan_layers()
     checked = {}   # kernel -> {frames: (checks, ms, plain ms, bound ms, bound by)}
-    for kernel, sizes, f32_extra in (("K1", (SEGMENT, train_frames, METRIC_LONG_FRAMES),
-                                      (0, 3)),
+    for kernel, sizes, f32_extra in (("K1", (SEGMENT, LAYER_FRAMES, train_frames,
+                                              METRIC_LONG_FRAMES), (0, 3)),
                                      ("K2", (train_frames,), (0, 3)),
-                                     ("K3a", (SEGMENT, train_frames), (3,)),
+                                     ("K3a", (SEGMENT, LAYER_FRAMES, train_frames), (3,)),
                                      ("K3b", (train_frames,), (3,)),
                                      ("K4", (SEGMENT,), EXACT_LAYERS),
                                      ("K5", (SEGMENT,), EXACT_LAYERS)):
@@ -369,6 +386,11 @@ def main(argv=None) -> int:
     # 13. Two processes on the one card over gloo: the trainers' global-batch
     # semantics and time-sharded lres synthesis.
     end_to_end.update(two_rank_phase(device))
+
+    # 14. The measurement tools at full width, through their functions:
+    # bench_train, a trace of an sres step, the per-layer table, prefetch.
+    launches["tools"], tool_numbers = tools_phase(device, checked)
+    end_to_end.update(tool_numbers)
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax",
                                                                    "long_video_gan_tpu"))
@@ -651,6 +673,35 @@ def synthetic_sres_batches(c: dict, device):
         yield batch
 
 
+# The wrapper function of each kernel that training and the tools launch.
+WRAPPED = {"K1": "filtered_lrelu_fwd_cuda", "K2": "filtered_lrelu_bwd_cuda",
+           "K3a": "fused_fwd_cuda", "K3b": "fused_bwd_cuda"}
+
+
+@contextlib.contextmanager
+def recorded_shapes(kernels):
+    """Inside the block, record the output shape of every launch of each of
+    `kernels` (of WRAPPED); yields {kernel: set of shapes}."""
+    seen = {k: set() for k in kernels}
+    originals = {}
+    for kernel in kernels:
+        module = counters()[kernel][0]
+        fn = getattr(module, WRAPPED[kernel])
+        originals[kernel] = (module, fn)
+
+        def recording(*args, _fn=fn, _shapes=seen[kernel], **kwargs):
+            out = _fn(*args, **kwargs)
+            _shapes.add(tuple(out.shape))
+            return out
+
+        setattr(module, WRAPPED[kernel], recording)
+    try:
+        yield seen
+    finally:
+        for kernel, (module, fn) in originals.items():
+            setattr(module, WRAPPED[kernel], fn)
+
+
 def train_phase(c: dict, device, label: str, steps: int, checked: dict, train_frames: int,
                 expected: dict):
     """`steps` full-preset training steps on seeded synthetic videos made on
@@ -677,24 +728,9 @@ def train_phase(c: dict, device, label: str, steps: int, checked: dict, train_fr
     torch.cuda.reset_peak_memory_stats()
     # Record the shape of every kernel output in training, to hold it to the
     # shapes checked above.
-    wrapped = {"K1": "filtered_lrelu_fwd_cuda", "K2": "filtered_lrelu_bwd_cuda",
-               "K3a": "fused_fwd_cuda", "K3b": "fused_bwd_cuda"}
-    seen = {k: set() for k in expected}
-    originals = {}
-    for kernel in expected:
-        module = counters()[kernel][0]
-        fn = getattr(module, wrapped[kernel])
-        originals[kernel] = (module, fn)
-
-        def recording(*args, _fn=fn, _shapes=seen[kernel], **kwargs):
-            out = _fn(*args, **kwargs)
-            _shapes.add(tuple(out.shape))
-            return out
-
-        setattr(module, wrapped[kernel], recording)
     reset_counts()
     step_s = []
-    try:
+    with recorded_shapes(expected) as seen:
         for step in range(steps):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -702,9 +738,6 @@ def train_phase(c: dict, device, label: str, steps: int, checked: dict, train_fr
                 collector.report(stats)
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t0)
-    finally:
-        for kernel, (module, fn) in originals.items():
-            setattr(module, wrapped[kernel], fn)
     counts = read_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     collector.update()
@@ -1508,6 +1541,125 @@ def two_rank_phase(device) -> dict:
     seconds = time.perf_counter() - t0
     print(f"two-rank phase {seconds:.1f} s")
     return {"two-rank phase s": seconds}
+
+
+def tools_phase(device, checked: dict) -> tuple[dict, dict]:
+    """Each measurement tool once at full width through its functions, the
+    counts reset just before: `bench_train` sres and lres at their swept
+    defaults, `torch_profile_train`'s phase table and trace of one sres
+    cycle (its chrome trace in a temporary directory), `torch_bench_layers`
+    on LAYER_IMPLS, `torch_bench_prefetch` at PREFETCH_DEPTHS. Raises
+    unless each launched exactly the kernels its work implies, only at
+    shapes checked above, the losses are finite, and the trace holds K1 and
+    K2 under their own categories as often as the counters say, in no more
+    device time than its wall time. Returns (the counts, the numbers)."""
+    import torch
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    import torch_bench_layers
+    import torch_bench_prefetch
+    import torch_profile_train
+
+    from long_video_gan_tpu_torch import bench_train, selftest
+
+    n_k1 = len(selftest.KERNEL_LAYERS)
+    n_fused = len(selftest.served_layers("K3a", selftest.plan_layers()))
+    numbers, total = {}, {k: 0 for k in counters()}
+    checked_shapes = {k: {c.shape for checks, *_ in by_frames.values() for c in checks
+                          if c.ms is not None} for k, by_frames in checked.items()}
+
+    def run(label: str, expected: dict, fn):
+        """fn() with the counts reset and the kernels' shapes recorded;
+        raises unless the counts are `expected` and every shape checked."""
+        reset_counts()
+        with recorded_shapes(expected) as seen:
+            out = fn()
+        counts = read_counts()
+        print(f"{label}: launches {counts} (expected {expected})")
+        if counts != {k: expected.get(k, 0) for k in counts}:
+            raise RuntimeError(f"{label} launched {counts}, expected {expected}")
+        for kernel, shapes in seen.items():
+            if not shapes <= checked_shapes[kernel]:
+                raise RuntimeError(f"{label} ran {kernel} at unchecked shapes "
+                                   f"{sorted(shapes - checked_shapes[kernel])}")
+        for k, n in counts.items():
+            total[k] += n
+        return out
+
+    phase(f"measurement tools: bench_train sres at its defaults "
+          f"(grad_accum {bench_train.DEFAULT_SRES_ACCUM}), {BENCH_SRES_STEPS} steps")
+    sres = bench_train.make_sres_bench(bench_train.DEFAULT_SRES_ACCUM, device=device)
+    acc_g, acc_d = sres.gan.G_grad_accum, sres.gan.D_grad_accum
+    cycles = len(bench_train.WARMUP_SEEDS) + BENCH_SRES_STEPS
+    record = run("bench_train sres", {"K1": n_k1 * (acc_g + acc_d) * cycles,
+                                      "K2": n_k1 * acc_g * cycles},
+                 lambda: bench_train.measure(sres, BENCH_SRES_STEPS))
+    print(json.dumps(record), flush=True)
+    numbers["bench_train sres s/step"] = record["value"]
+
+    phase(f"measurement tools: torch_profile_train --config sres, {PROFILE_STEPS} call(s) "
+          f"per phase, then a trace of one cycle")
+    calls = 1 + PROFILE_STEPS
+    rows, step_s = run("phase timing", {"K1": n_k1 * (acc_g + acc_d) * calls,
+                                        "K2": n_k1 * acc_g * calls},
+                       lambda: torch_profile_train.time_phases(sres, PROFILE_STEPS))
+    for r in rows:
+        print(json.dumps(r))
+    print(json.dumps({"config": "sres", **sres.record, "amortized_sec_per_step": step_s}))
+    expected = {"K1": n_k1 * (acc_g + acc_d), "K2": n_k1 * acc_g}
+    with tempfile.TemporaryDirectory() as tmp:
+        traced = run("traced cycle", expected,
+                     lambda: torch_profile_train.trace_cycle(sres, tmp, top=25))
+    in_trace = {"K1": traced["categories"].get("K1 filtered_lrelu fwd", (0.0, 0))[1],
+                "K2": traced["categories"].get("K2 filtered_lrelu bwd", (0.0, 0))[1]}
+    idle = 1 - traced["device_sec"] / traced["wall_sec"]
+    print(f"trace: K1 {in_trace['K1']}, K2 {in_trace['K2']} launches (counters {expected}); "
+          f"device {traced['device_sec']:.3f} s of {traced['wall_sec']:.3f} s traced wall "
+          f"(idle {idle:.1%})")
+    if in_trace != expected:
+        raise RuntimeError(f"the trace holds {in_trace} K1/K2 launches, the counters {expected}")
+    if traced["device_sec"] > traced["wall_sec"]:
+        raise RuntimeError("the trace's device time exceeds its wall time")
+    numbers["traced sres cycle device s"] = traced["device_sec"]
+    del sres, traced
+    torch.cuda.empty_cache()
+
+    phase(f"measurement tools: bench_train lres at its defaults (grad_accum "
+          f"{bench_train.DEFAULT_LRES_ACCUM}, G bf16 layers "
+          f"{bench_train.DEFAULT_LRES_FP16_LAYERS}, D bf16 blocks "
+          f"{bench_train.DEFAULT_LRES_D_FP16_RES}), {BENCH_LRES_STEPS} step")
+    record = run("bench_train lres", {}, lambda: bench_train.bench_lres(
+        bench_train.DEFAULT_LRES_ACCUM, BENCH_LRES_STEPS, bench_train.DEFAULT_LRES_FP16_LAYERS,
+        bench_train.DEFAULT_LRES_D_FP16_RES, device=device))
+    print(json.dumps(record), flush=True)
+    numbers["bench_train lres s/step"] = record["value"]
+    torch.cuda.empty_cache()
+
+    phase(f"measurement tools: torch_bench_layers, {LAYER_FRAMES} frames, "
+          f"{', '.join(LAYER_IMPLS)}, {LAYER_ITERS} launches each")
+    net = torch_bench_layers.plan_network(device)
+    layer_rows = run("per-layer table", {"K1": n_k1 * (1 + LAYER_ITERS),
+                                         "K3a": n_fused * (1 + LAYER_ITERS)},
+                     lambda: torch_bench_layers.bench_layers(
+                         net, LAYER_FRAMES, LAYER_IMPLS, LAYER_ITERS,
+                         torch.Generator().manual_seed(SEED)))
+    totals = torch_bench_layers.print_table(layer_rows, LAYER_IMPLS)
+    numbers.update({f"layers {k} ms": v for k, v in totals.items()})
+    del net
+
+    phase(f"measurement tools: torch_bench_prefetch, depths {PREFETCH_DEPTHS}, "
+          f"{PREFETCH_SEGMENTS} segments, best of {PREFETCH_ITERS}")
+    G, lr_video, z = torch_bench_prefetch.streaming_inputs(PREFETCH_SEGMENTS, SEGMENT, device)
+    runs = 1 + len(PREFETCH_DEPTHS) * PREFETCH_ITERS
+    records = run("prefetch sweep", {"K1": n_k1 * PREFETCH_SEGMENTS * runs},
+                  lambda: torch_bench_prefetch.sweep(G, lr_video, z, SEGMENT, PREFETCH_DEPTHS,
+                                                     PREFETCH_ITERS))
+    for r in records:
+        print(json.dumps(r), flush=True)
+        numbers[f"prefetch {r['prefetch']} frames/s"] = r["value"]
+    del G, lr_video, z
+    torch.cuda.empty_cache()
+    return total, numbers
 
 
 def temporal_models(device) -> dict:

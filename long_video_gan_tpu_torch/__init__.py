@@ -15,20 +15,25 @@ Layout (mirrors `long_video_gan_tpu`):
   models/    lres and sres generators and discriminators, ADA, DiffAugment
   train/     Adam, EMA, temporal augmentations, statistics, both GAN trainers
              and their train state in `.lvg`
-  io/        `.lvg` checkpoint reader and writer, JAX-variable conversion
+  io/        `.lvg` checkpoint reader and writer, JAX-variable and
+             reference-state_dict conversion
   data/      ZIP-of-JPEG datasets, the loader, the JPEG decoder, the
-             synthetic dataset tool
+             dataset tools (synthetic, from frames, videos, YouTube clips)
   metrics/   feature statistics, the I3D / InceptionV3 / C3D detectors and
              their weight converters, the sampling protocols, the registry
   parallel/  several processes: launch, the global-batch collectives,
              time-sharded lres synthesis
-  utils/     shape asserts, nvcc build helper
+  utils/     shape asserts, nvcc build helper, URL fetching, profiling
   generate.py      the two-stage generation entry point and CLI
   calc_metrics.py  the metric CLI
   train_lres.py    the lres training CLI
   train_sres.py    the sres training CLI
+  bench_train.py   the training-throughput benchmark
+  convert_checkpoint.py     reference G_ema pickles to `.lvg`
+  plot_color_similarity.py  the color-drift figure
 
-This package imports torch, numpy and scipy, never jax or flax.
+This package imports torch, numpy and scipy, never jax or flax; the dataset
+tools also PIL (and OpenCV for videos), the figure matplotlib.
 """
 
 __version__ = "0.1.0"

@@ -8,6 +8,9 @@ with a shared z.
     python -m long_video_gan_tpu_torch.generate --lres lres.lvg --sres sres.lvg \\
         --output out.mp4 --frames 301
 
+`--lres` and `--sres` take a path or a URL: `file://`, or http(s), which
+downloads once into the port's cache (`utils/fetch.py`).
+
 The same seed gives other frames than the JAX package's `generate.py`: torch
 generators and JAX's threefry keys draw different numbers.
 """
@@ -86,8 +89,10 @@ def generate_video(lres_G: generator_lres.VideoGenerator,
 
 def main(argv: Optional[list[str]] = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--lres", dest="lres_path", required=True, help="lres G_ema checkpoint")
-    ap.add_argument("--sres", dest="sres_path", default=None, help="sres G_ema checkpoint")
+    ap.add_argument("--lres", dest="lres_path", required=True,
+                    help="lres G_ema checkpoint: a path or a URL")
+    ap.add_argument("--sres", dest="sres_path", default=None,
+                    help="sres G_ema checkpoint: a path or a URL")
     ap.add_argument("--output", required=True, help="Output mp4 path")
     ap.add_argument("--seed", type=int, default=49)
     ap.add_argument("--frames", dest="num_frames", type=int, default=301)
@@ -108,13 +113,17 @@ def main(argv: Optional[list[str]] = None) -> None:
     device = cli_device(args.device)
 
     from .io.checkpoint import load_generator
+    from .utils.fetch import resolve_path
     from .utils.video import save_image_grid, write_video_grid
 
     out_path = Path(args.output)
     out_path.parent.mkdir(parents=True, exist_ok=True)
     gen = torch.Generator(device="cpu").manual_seed(args.seed)
-    lres_G, _ = load_generator(args.lres_path, device)
-    sres_G = load_generator(args.sres_path, device)[0] if args.sres_path else None
+    # A URL checkpoint (file://, or http(s) already in the cache) resolves
+    # to a local file first, as in the JAX package's CLI.
+    lres_G, _ = load_generator(resolve_path(args.lres_path), device)
+    sres_G = (load_generator(resolve_path(args.sres_path), device)[0] if args.sres_path
+              else None)
     indices = sorted({i for i in args.save_frame_indices if 0 <= i < args.num_frames})
 
     def save_indexed_frame(frame_nchw, index):

@@ -10,6 +10,14 @@ Counterpart of `long_video_gan_tpu/io/convert_torch.py`, both ways:
     tree of float32 numpy arrays, for the `.lvg` writer. Parameters go to
     "params", the SynthesisInput's drawn-once `features` to "consts", and the
     other persistent buffers (magnitude EMAs, w_avg) to "ema".
+  * `load_reference_state`: a state_dict of the reference PyTorch release
+    (whose keys the JAX package's converter maps onto its variables by
+    `flax_path_to_torch_key`) becomes the module's, with that converter's
+    strictness: a shape mismatch raises, an entry the module needs and the
+    state_dict lacks raises, and an entry left unused raises unless it is a
+    static filter buffer (`_SKIP_BUFFER_RE`) the module rebuilds from its
+    config. `load_reference_pickle_state` unpickles a reference G_ema file
+    for it (`convert_checkpoint.py`).
 """
 
 from __future__ import annotations
@@ -27,6 +35,13 @@ MODULE_LIST_NAMES = ("temporal_layers", "spatial_layers", "blocks", "resamples",
                      "linear")
 
 _CONST_BUFFERS = ("features",)
+
+# Buffers of the reference that are static constants here (rebuilt from the
+# config): the JAX package converter's list.
+_SKIP_BUFFER_RE = re.compile(
+    r"(^|\.)(blur_filters|output_scale|filter|_downsample_filter|resample_filter|"
+    r"up_filter|down_filter|Hz_geom|Hz_fbank|features|negate_mask\d?)$"
+)
 
 
 def flax_path_to_torch_key(path: tuple[str, ...]) -> str:
@@ -115,3 +130,64 @@ def module_to_variables(module: torch.nn.Module) -> dict:
             node = node.setdefault(seg, {})
         node[path[-1]] = array
     return tree
+
+
+def load_reference_state(module: torch.nn.Module, state_dict: Mapping[str, Any]) -> None:
+    """Copy a reference state_dict into `module`: every entry of the module's
+    state_dict from the entry of the same key, cast to its type."""
+    state = module.state_dict()
+    missing = [k for k in state if k not in state_dict]
+    if missing:
+        raise KeyError(f"torch state_dict has no entry for {missing[0]}"
+                       f"{f' (and {len(missing) - 1} more)' if len(missing) > 1 else ''}")
+    new_state = {}
+    for key, target in state.items():
+        value = state_dict[key]
+        value = (value.detach().cpu() if isinstance(value, torch.Tensor)
+                 else torch.from_numpy(np.array(value)))
+        if tuple(value.shape) != tuple(target.shape):
+            raise ValueError(f"shape mismatch for {key}: torch {tuple(value.shape)} vs ours "
+                             f"{tuple(target.shape)}")
+        new_state[key] = value.to(target.dtype)
+    unused = [k for k in state_dict if k not in state and not _SKIP_BUFFER_RE.search(k)]
+    if unused:
+        raise KeyError(f"unconverted torch entries (non-filter): {unused[:10]}"
+                       f"{' ...' if len(unused) > 10 else ''}")
+    module.load_state_dict(new_state, strict=True)
+
+
+def install_reference_unpickle_shims() -> None:
+    """Shim `pkg_resources` (gone from modern setuptools), which the
+    reference's conv2d_gradfix imports for a torch version check when the
+    source embedded in its pickles runs. Idempotent."""
+    import sys
+    import types
+
+    if "pkg_resources" in sys.modules:
+        return
+    try:
+        from packaging.version import parse as _parse_version
+    except ImportError:  # pragma: no cover
+        def _parse_version(v):
+            return tuple(int(p) for p in v.split("+")[0].split(".") if p.isdigit())
+    shim = types.ModuleType("pkg_resources")
+    shim.parse_version = _parse_version
+    sys.modules["pkg_resources"] = shim
+
+
+def load_reference_pickle_state(path: str) -> tuple[dict, dict]:
+    """Unpickle a reference G_ema pickle; returns (its state_dict, its
+    init_kwargs).
+
+    The pickle rebuilds its classes from the source it embeds, so the
+    reference repository must be on `sys.path`, and unpickling runs that
+    code: open only files of the published release. Used only by
+    `convert_checkpoint`, never in training or inference.
+    """
+    import pickle
+
+    install_reference_unpickle_shims()
+    with open(path, "rb") as fp:
+        module = pickle.load(fp)
+    init_kwargs = dict(getattr(module, "init_kwargs", {}))
+    return dict(module.state_dict().items()), init_kwargs

@@ -7,7 +7,7 @@ input with the transposed output gradient as its filter, a filter as large
 as the whole output. On the card cuDNN runs that through a slow generic
 kernel: R1, which differentiates the lres discriminator's 3D convolutions
 twice, spent 1.6 s of a 2.1 s micro-batch of 16 clips there (NVIDIA H100
-80GB HBM3; `scripts/torch_profile_lres.py`). Here the convolution, its input
+80GB HBM3; a `torch.profiler` run of each lres phase). Here the convolution, its input
 gradient and its weight gradient are three autograd Functions, each of whose
 gradients is made of the three again (as StyleGAN's conv2d_gradfix does for 2D), so
 every order runs cuDNN's forward, input-gradient and weight-gradient
