@@ -4,8 +4,9 @@ source and two f32 ones, K3a and K3b one tensor-core source for both types,
 K4 and K5 another), prints the tensor-core kernels' registers, spills and HMMA
 instruction counts (K1/K2 in bf16; K3a/K3b and K4/K5, each type), holds each
 kernel against its plain version at every layer geometry its paths give it
-(K1 forward at generation, per-layer-table and training size, also against
-the f32 composed op; K2 backward at training size; K3a forward at generation,
+(K1 forward at generation, per-layer-table, training and metric size, 16 to
+512 frames, also against the f32 composed op up to 128; K2 backward at
+training size; K3a forward at generation,
 per-layer-table and training size, K3b backward at training size; K4 and K5
 at generation size), with the
 tensor-core kernels' executed rate and per-layer tables of time, bound and
@@ -22,7 +23,8 @@ share, then drives each path through the entry points a user calls:
   point `filtered_lrelu_pallas_v2`, at the full-width layers they serve;
 - the quality metrics through `metrics.metric_main.calc_metric` on the
   full-width two-stage pipeline (K1 in every sres call, the 128-frame
-  `fvd2048_128f` clip in one pass) and a synthetic 144x256 dataset, with the
+  `fvd2048_128f` clip in one pass, `fvd2048_128f_subsample8f`'s 4 clips of
+  128 frames in one pass) and a synthetic 144x256 dataset, with the
   port's I3D, InceptionV3 and C3D detectors (seeded random weights, scripted
   to files and loaded back through `get_detector`), each detector held on
   one batch to the same module on the CPU;
@@ -40,7 +42,11 @@ share, then drives each path through the entry points a user calls:
   of one sres cycle (K1 and K2 counted in the trace as by the counters),
   `scripts/torch_bench_layers.py`'s per-layer table on `auto` (K1) and
   `fused` (K3a) at 24 frames, and `scripts/torch_bench_prefetch.py` at
-  prefetch 0, 1 and 2 (K1).
+  prefetch 0, 1 and 2 (K1);
+- the sres synthesis bench as a user runs it,
+  `python -m long_video_gan_tpu_torch.bench`, on `auto` (K1) and `fused`
+  (K3a), each in its own process (one JSON line on stdout, its guard's line
+  on stderr), and its `--selftest` sweep.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --compare PARENT.log   # also the times of another
@@ -90,6 +96,8 @@ LRES_RTOL = 1e-3       # card vs CPU at the tiny parity config: the CPU tests' b
 METRIC_ITEMS = 64      # fvd2048_16f, fid50k_full, is50k: items of each side
 METRIC_LONG = 2        # fvd2048_128f: clips of each side
 METRIC_LONG_FRAMES = 128   # ... which the sres G makes in one pass (K1 at 128 frames)
+METRIC_SUBSAMPLE_CLIPS = 4   # fvd2048_128f_subsample8f: generated clips, one generator batch
+METRIC_SUBSAMPLE_FRAMES = METRIC_SUBSAMPLE_CLIPS * METRIC_LONG_FRAMES   # in one pass (K1 at 512)
 METRIC_UCF_ITEMS = 16  # isv2048_ucf: generated clips
 DETECTOR_TOL = 1e-3    # card (TF32 off) vs CPU features, of their max |.|
 SELF_FD_TOL = 1e-4     # |Fréchet distance of a stats set with itself|, of its covariance's trace
@@ -107,6 +115,8 @@ LAYER_ITERS = 20
 PREFETCH_DEPTHS = (0, 1, 2)   # torch_bench_prefetch: depths, segments, best of
 PREFETCH_SEGMENTS = 8
 PREFETCH_ITERS = 3
+BENCH_IMPLS = ("auto", "fused")   # long_video_gan_tpu_torch.bench at its defaults
+BENCH_TIMEOUT = 300    # seconds per bench process
 SEED = 0
 
 # The TPU kernel each one replaces (function that reaches pl.pallas_call).
@@ -120,8 +130,11 @@ REPLACES = {
 }
 
 
+T_START = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - T_START:.1f} s)", flush=True)
 
 
 def rel_err(got, want) -> float:
@@ -173,7 +186,6 @@ def main(argv=None) -> int:
     from long_video_gan_tpu_torch.utils.nvcc import find_nvcc
 
     device = torch.device("cuda")
-    t_start = time.perf_counter()
 
     # 1. Device and toolchain.
     phase("device")
@@ -214,16 +226,23 @@ def main(argv=None) -> int:
     layers = selftest.plan_layers()
     checked = {}   # kernel -> {frames: (checks, ms, plain ms, bound ms, bound by)}
     for kernel, sizes, f32_extra in (("K1", (SEGMENT, LAYER_FRAMES, train_frames,
-                                              METRIC_LONG_FRAMES), (0, 3)),
+                                              METRIC_LONG_FRAMES, METRIC_SUBSAMPLE_FRAMES),
+                                      (0, 3)),
                                      ("K2", (train_frames,), (0, 3)),
                                      ("K3a", (SEGMENT, LAYER_FRAMES, train_frames), (3,)),
                                      ("K3b", (train_frames,), (3,)),
                                      ("K4", (SEGMENT,), EXACT_LAYERS),
                                      ("K5", (SEGMENT,), EXACT_LAYERS)):
         for frames in sizes:
+            # At the subsample metric's 512 frames, K1 in the layers' type
+            # only (the smaller sizes check the f32 kernel and the composed
+            # op), on inputs drawn on the card: 2-15 GB a layer.
+            full = frames != METRIC_SUBSAMPLE_FRAMES
             phase(f"{kernel} vs plain, 144x256 plan, {frames} frames")
             checked.setdefault(kernel, {})[frames] = check_kernel(
-                layers, frames, device, gen, kernel, f32_extra)
+                layers, frames, device,
+                gen if full else torch.Generator(device=device).manual_seed(SEED + 9), kernel,
+                f32_extra if full else (), vs_composed=kernel == "K1" and full)
 
     _, layer = layers[3]
     x = torch.randn((1, 2, 31, 38), device=device, requires_grad=True)
@@ -262,7 +281,7 @@ def main(argv=None) -> int:
                 print(f"{entry} at {name}'s crop raises ValueError: {str(e)[:70]}...")
             else:
                 raise RuntimeError(f"{entry} did not raise at {name}'s crop padding")
-    print(f"kernel checks done at {time.perf_counter() - t_start:.1f} s")
+    print(f"kernel checks done at {time.perf_counter() - T_START:.1f} s")
 
     # 5. Full-width two-stage generation through the port's entry point.
     phase(f"generate_video: lres 36x64 + sres 144x256 (auto), {FRAMES} frames")
@@ -392,6 +411,11 @@ def main(argv=None) -> int:
     launches["tools"], tool_numbers = tools_phase(device, checked)
     end_to_end.update(tool_numbers)
 
+    # 15. The sres synthesis bench as a user runs it, each impl in its own
+    # process, and its --selftest sweep.
+    launches["bench"], bench_numbers = bench_phase()
+    end_to_end.update(bench_numbers)
+
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax",
                                                                    "long_video_gan_tpu"))
     if leaked:
@@ -433,7 +457,7 @@ def main(argv=None) -> int:
         with open(args.compare) as f:
             parent = parse_log(f.read())
     layer_tables(checked, parent, end_to_end)
-    print(f"whole script {time.perf_counter() - t_start:.1f} s")
+    print(f"whole script {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -441,12 +465,14 @@ def main(argv=None) -> int:
     return 0
 
 
-def check_kernel(layers, frames: int, device, gen, kernel: str, f32_extra=()):
+def check_kernel(layers, frames: int, device, gen, kernel: str, f32_extra=(),
+                 vs_composed: bool = False):
     """`kernel` against its plain version at every plan layer its path runs
-    it at (K4/K5: EXACT_LAYERS), in that layer's type and timed, and
-    untimed in f32 at the `f32_extra` layers not already checked in f32;
-    raises if any disagrees. Returns (the checks, kernel ms, plain ms, bound
-    ms, what bounds it), the times summed over the timed checks."""
+    it at (K4/K5: EXACT_LAYERS), in that layer's type and timed (and, with
+    `vs_composed`, against the f32 composed op), and untimed in f32 at the
+    `f32_extra` layers not already checked in f32; raises if any disagrees.
+    Returns (the checks, kernel ms, plain ms, bound ms, what bounds it), the
+    times summed over the timed checks."""
     import torch
 
     from long_video_gan_tpu_torch import selftest
@@ -457,7 +483,7 @@ def check_kernel(layers, frames: int, device, gen, kernel: str, f32_extra=()):
         raise RuntimeError(f"{kernel} does not serve layers {sorted(set(indices) - set(served))}")
     checks = [selftest.check_layer(layers[i][1], layers[i][0], frames,
                                    selftest.layer_dtype(layers[i][1]), device, gen, time_it=True,
-                                   kernel=kernel, vs_composed=kernel == "K1") for i in indices]
+                                   kernel=kernel, vs_composed=vs_composed) for i in indices]
     checks += [selftest.check_layer(layers[i][1], layers[i][0], frames, torch.float32, device,
                                     gen, kernel=kernel)
                for i in f32_extra
@@ -579,6 +605,10 @@ def parse_log(text: str) -> dict:
         m = re.match(r"lres warm sec/step without R1 ([\d.]+), with R1 ([\d.]+)", line)
         if m:
             out["lres s/step"], out["lres R1 step s"] = float(m.group(1)), float(m.group(2))
+        if line.startswith('{"metric": "sres_synthesis_frames_per_sec'):
+            record = json.loads(line)
+            out[f"bench {record['impl']} frames/s"] = record["value"]
+            out[f"bench {record['impl']} per-segment frames/s"] = record["per_segment_value"]
     return out
 
 
@@ -1131,9 +1161,12 @@ def metrics_phase(device, checked: dict) -> tuple[dict, dict]:
     G at 144x256, `num_fp16_res=4`, `auto`; seeded random weights) against a
     synthetic 144x256 + 36x64 dataset made with the port's tool:
     fvd2048_16f on METRIC_ITEMS real and generated clips, fvd2048_128f on
-    METRIC_LONG (the sres G on 136 lr frames in one pass), fid50k_full and
-    is50k through the InceptionV3 on METRIC_ITEMS items, isv2048_ucf through
-    the C3D on METRIC_UCF_ITEMS. The detectors have seeded random weights,
+    METRIC_LONG (the sres G on 136 lr frames in one pass),
+    fvd2048_128f_subsample8f on METRIC_SUBSAMPLE_CLIPS generated clips (one
+    generator batch: the sres G on 4 x 136 lr frames in one pass, 512 output
+    frames; the sres call's seconds and the peak memory printed), fid50k_full
+    and is50k through the InceptionV3 on METRIC_ITEMS items, isv2048_ucf
+    through the C3D on METRIC_UCF_ITEMS. The detectors have seeded random weights,
     are scripted to files and come back through `get_detector`. Each metric
     runs with the counts reset just before; raises unless its values are
     finite, K1 launched 11 times per sres call (no other kernel) at the
@@ -1142,7 +1175,7 @@ def metrics_phase(device, checked: dict) -> tuple[dict, dict]:
     of their max |.|, and the Fréchet distance of a stats set with itself
     is about 0. Also fvd2048_16f once more with TF32 off. Returns (the
     counts summed over the metrics, the seconds per generated clip by
-    metric)."""
+    metric, the subsample8f call's seconds and peak GiB)."""
     import copy
 
     import numpy as np
@@ -1182,8 +1215,21 @@ def metrics_phase(device, checked: dict) -> tuple[dict, dict]:
                            wgen).eval()
     lres_G.requires_grad_(False)
     sres_G.requires_grad_(False)
-    sres_inputs = []
-    sres_G.register_forward_pre_hook(lambda m, args: sres_inputs.append(tuple(args[0].shape)))
+    # Each sres call's input shape and a CUDA event on each side of it: no
+    # host sync, so every metric's s/clip is taken as without the hooks.
+    sres_inputs, sres_events = [], []
+
+    def sres_start(module, args):
+        sres_inputs.append(tuple(args[0].shape))
+        sres_events.append((torch.cuda.Event(enable_timing=True),
+                            torch.cuda.Event(enable_timing=True)))
+        sres_events[-1][0].record()
+
+    def sres_end(module, args, out):
+        sres_events[-1][1].record()
+
+    sres_G.register_forward_pre_hook(sres_start)
+    sres_G.register_forward_hook(sres_end)
 
     specs = {}
     for family, module, example, cls in (
@@ -1224,6 +1270,9 @@ def metrics_phase(device, checked: dict) -> tuple[dict, dict]:
     runs = [("fvd2048_16f", dict(detector=specs["i3d"], max_items_override=METRIC_ITEMS)),
             ("fvd2048_128f", dict(detector=specs["i3d"], max_items_override=METRIC_LONG,
                                   dataset_kwargs=long_data)),
+            ("fvd2048_128f_subsample8f", dict(detector=specs["i3d"],
+                                              max_items_override=METRIC_SUBSAMPLE_CLIPS,
+                                              dataset_kwargs=long_data)),
             ("fid50k_full", dict(detector=specs["inception"], max_items_override=METRIC_ITEMS)),
             ("is50k", dict(detector=specs["inception"], max_items_override=METRIC_ITEMS)),
             ("isv2048_ucf", dict(detector=specs["c3d"], max_items_override=METRIC_UCF_ITEMS))]
@@ -1252,7 +1301,7 @@ def metrics_phase(device, checked: dict) -> tuple[dict, dict]:
         k1_shapes.add(tuple(out.shape))
         return out
 
-    counts_sum, per_clip, values, inputs = {}, {}, {}, {}
+    counts_sum, per_clip, values, inputs, peaks, call_s = {}, {}, {}, {}, {}, {}
     try:
         for name in originals:
             setattr(metric_main, name, timed(name))
@@ -1265,6 +1314,7 @@ def metrics_phase(device, checked: dict) -> tuple[dict, dict]:
             totals.clear()
             totals.update(detector_s=0.0, detector_items=0)
             sres_inputs.clear()
+            sres_events.clear()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             reset_counts()
@@ -1280,6 +1330,9 @@ def metrics_phase(device, checked: dict) -> tuple[dict, dict]:
             label = metric if tf32 else f"{metric} (TF32 off)"
             values[label] = result["results"]
             inputs[label] = set(sres_inputs)
+            torch.cuda.synchronize()
+            peaks[label] = peak_gib
+            call_s[label] = [start.elapsed_time(end) / 1e3 for start, end in sres_events]
             s_per_clip = (gen_s - gen_det_s) / gen_stats.num_items
             per_clip[f"{metric} s/clip" if tf32 else f"{metric} TF32 off s/clip"] = s_per_clip
             rate = totals["detector_items"] / totals["detector_s"]
@@ -1307,6 +1360,15 @@ def metrics_phase(device, checked: dict) -> tuple[dict, dict]:
     if inputs["fvd2048_128f"] != {long_input}:
         raise RuntimeError(f"fvd2048_128f called the sres G on {inputs['fvd2048_128f']}")
     print(f"fvd2048_128f: the sres G took {long_input} in one pass")
+    sub = "fvd2048_128f_subsample8f"
+    sub_input = (METRIC_SUBSAMPLE_CLIPS,) + long_input[1:]
+    if inputs[sub] != {sub_input} or len(call_s[sub]) != 1:
+        raise RuntimeError(f"{sub} called the sres G {len(call_s[sub])} times on {inputs[sub]}")
+    print(f"{sub}: the sres G took {sub_input} in one pass ({METRIC_SUBSAMPLE_FRAMES} output "
+          f"frames, K1 at {METRIC_SUBSAMPLE_FRAMES} frames) in {call_s[sub][0]:.3f} s (CUDA "
+          f"events); peak "
+          f"memory of the metric {peaks[sub]:.2f} GiB; {values[sub]}")
+    per_clip[f"{sub} sres call s"], per_clip[f"{sub} peak GiB"] = call_s[sub][0], peaks[sub]
     want = {k.shape for frames in checked["K1"].values() for k in frames[0] if k.ms is not None}
     if not k1_shapes <= want:
         raise RuntimeError(f"the metrics ran K1 at {sorted(k1_shapes - want)}, shapes not "
@@ -1660,6 +1722,89 @@ def tools_phase(device, checked: dict) -> tuple[dict, dict]:
     del G, lr_video, z
     torch.cuda.empty_cache()
     return total, numbers
+
+
+def bench_phase() -> tuple[dict, dict]:
+    """`python -m long_video_gan_tpu_torch.bench` at its defaults on each of
+    BENCH_IMPLS, then `--selftest`, each in its own process on the card.
+    Raises unless each bench prints exactly one JSON line on stdout, with
+    finite positive frames/s in both protocols, 0 < mfu <= 1 and the same
+    tflop_per_frame across the impls, and its guard's line for the impl's
+    kernel, passing, on stderr (none on stdout); unless the kernel launched
+    once per served layer in every timed segment and no other kernel did;
+    and unless --selftest runs to its end with no failing check but K2/K3b
+    in bf16 (its exit code printed). Returns (the timed calls' launches, the
+    numbers)."""
+    import torch
+
+    from long_video_gan_tpu_torch import bench, selftest
+
+    phase(f"sres synthesis bench: python -m long_video_gan_tpu_torch.bench --impl "
+          f"{', '.join(BENCH_IMPLS)}, then --selftest, each its own process")
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    layers = selftest.plan_layers()
+    launches, numbers, records = {k: 0 for k in counters()}, {}, {}
+    t_phase = time.perf_counter()
+    for impl in BENCH_IMPLS:
+        kernel, index = bench.GUARD[impl]
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "long_video_gan_tpu_torch.bench", "--impl",
+                              impl], cwd=root, capture_output=True, text=True,
+                             timeout=BENCH_TIMEOUT)
+        guard = [line for line in run.stderr.splitlines() if line.startswith("guard:")]
+        print(f"bench --impl {impl}: exit {run.returncode} in {time.perf_counter() - t0:.1f} s; "
+              f"stderr: {guard}")
+        lines = run.stdout.splitlines()
+        print(run.stdout, end="", flush=True)
+        if run.returncode != 0 or len(lines) != 1:
+            raise RuntimeError(f"bench --impl {impl} exited {run.returncode} with {len(lines)} "
+                               f"stdout lines; stderr ends {run.stderr[-3000:]}")
+        want_guard = f"guard: impl={impl} {kernel} {layers[index][0]} "
+        if len(guard) != 1 or not guard[0].startswith(want_guard) or not guard[0].endswith(" ok"):
+            raise RuntimeError(f"bench --impl {impl}: no passing guard of {kernel} at "
+                               f"{layers[index][0]} on stderr: {guard}")
+        r = records[impl] = json.loads(lines[0])
+        rates = (r["value"], r["per_segment_value"])
+        if r["impl"] != impl or not all(math.isfinite(v) and v > 0 for v in rates):
+            raise RuntimeError(f"bench --impl {impl}: frames/s {rates} for impl {r['impl']}")
+        if not 0 < r["mfu"] <= 1:
+            raise RuntimeError(f"bench --impl {impl}: mfu {r['mfu']} outside (0, 1]")
+        segments = r["iters"] * (r["chain"] + 1)
+        per_segment = len(selftest.served_layers(kernel, layers))
+        want = {k: per_segment * segments * r["batch"] if k == kernel else 0
+                for k in r["launches"]}
+        if r["launches"] != want:
+            raise RuntimeError(f"bench --impl {impl} launched {r['launches']} in its timed "
+                               f"calls, expected {want}")
+        launches[kernel] += r["launches"][kernel]
+        numbers[f"bench {impl} frames/s"] = r["value"]
+        numbers[f"bench {impl} per-segment frames/s"] = r["per_segment_value"]
+        numbers[f"bench {impl} mfu"] = r["mfu"]
+    flops = {impl: r["tflop_per_frame"] for impl, r in records.items()}
+    if len(set(flops.values())) != 1:
+        raise RuntimeError(f"the bench's FLOP count differs across impls: {flops}")
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "long_video_gan_tpu_torch.bench", "--selftest"],
+                         cwd=root, capture_output=True, text=True, timeout=BENCH_TIMEOUT)
+    lines = run.stdout.splitlines()
+    print(f"bench --selftest: exit {run.returncode} in {time.perf_counter() - t0:.1f} s, "
+          f"{len(lines)} lines; its summary and model checks:")
+    for line in lines:
+        if not line.startswith("K") or "FAIL" in line:
+            print(line)
+    # The sweep's exit code is printed, not required: K2/K3b's bf16 gradients
+    # at 24 frames can exceed TOLS[bf16] through act' flips (ROADMAP.md Queue 3
+    # item 1), a failure that stands until their bar is settled.
+    # Any other failing check, or a sweep that did not run to its end, raises.
+    summary = [line for line in lines if line.startswith(("selftest:", "model selftest"))]
+    other = [line for line in lines if "FAIL" in line and not line.startswith("selftest:")
+             and not (line.startswith(("K2 ", "K3b ")) and " bfloat16 " in line)]
+    if len(summary) != 1 + len(bench.MODEL_IMPLS) or other or run.returncode not in (0, 1):
+        raise RuntimeError(f"bench --selftest exited {run.returncode} with {summary}, failing "
+                           f"{other}; stderr ends {run.stderr[-3000:]}")
+    print(f"bench phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, numbers
 
 
 def temporal_models(device) -> dict:

@@ -23,7 +23,8 @@ import torch.nn.functional as F
 
 from ..ops.filtered_lrelu import auto_impl_policy, filtered_lrelu
 from ..ops.filters import design_lowpass_filter, kaiser_resample_filter
-from ..ops.upfirdn2d import downsample2d, upsample2d
+from ..ops.upfirdn2d import (downsample2d, downsample2d_padding, upfirdn2d_macs,
+                             upsample2d, upsample2d_padding)
 from ..parallel.mesh import mean_over_processes
 from ..utils.misc import assert_shape
 from .common import FullyConnectedLayer, filter_buffer, randn_
@@ -374,6 +375,13 @@ class KaiserDownsample2d(nn.Module):
             x = F.pad(x, [p, p, p, p], mode="replicate")
         return downsample2d(x, self.filter, down=self.scale, padding=-p, impl=self.impl)
 
+    def macs(self, h: int, w: int) -> tuple[int, int, int]:
+        """(out_h, out_w, tap-exact multiply-adds per map) of `forward` on
+        an h x w map (`upfirdn2d_macs`, H pass first)."""
+        p = int(self.pad) * self.scale
+        return upfirdn2d_macs(h + 2 * p, w + 2 * p, self.filter.shape[0], down=self.scale,
+                              padding=downsample2d_padding(self.filter, self.scale, -p))
+
 
 class KaiserUpsample2d(nn.Module):
     def __init__(self, scale: int, filter_size: int = 6, cutoff: float = 1.0,
@@ -390,6 +398,14 @@ class KaiserUpsample2d(nn.Module):
         if self.pad:
             x = F.pad(x, [p, p, p, p], mode="replicate")
         return upsample2d(x, self.filter, up=self.scale, padding=-p * self.scale, impl=self.impl)
+
+    def macs(self, h: int, w: int) -> tuple[int, int, int]:
+        """(out_h, out_w, tap-exact multiply-adds per map) of `forward` on
+        an h x w map (`upfirdn2d_macs`, H pass first)."""
+        p = int(self.pad)
+        return upfirdn2d_macs(h + 2 * p, w + 2 * p, self.filter.shape[0], up=self.scale,
+                              padding=upsample2d_padding(self.filter, self.scale,
+                                                         -p * self.scale))
 
 
 # ---------------------------------------------------------------------------

@@ -194,6 +194,21 @@ def axis_nonzeros(in_size: int, up: int, down: int, pad0: int, pad1: int, taps: 
     return (out_size, *nonzeros)
 
 
+def upfirdn2d_macs(in_h: int, in_w: int, taps: int, up: int = 1, down: int = 1, padding=0,
+                   h_first: bool = True) -> tuple[int, int, int]:
+    """(out_h, out_w, multiply-adds per map) of upfirdn2d with a separable
+    `taps`-tap filter, tap-exact: each pass costs the nonzeros of its axis's
+    banded operator (`axis_nonzeros`) times the length of the other axis at
+    that pass, the H pass first (`h_first`) or the W pass first. Zero taps
+    of the zero-stuffing are not counted, whatever a backend computes."""
+    px0, px1, py0, py1 = parse_padding(padding)
+    out_h, rows_h, *_ = axis_nonzeros(in_h, up, down, py0, py1, taps)
+    out_w, rows_w, *_ = axis_nonzeros(in_w, up, down, px0, px1, taps)
+    nnz_h, nnz_w = rows_h.numel(), rows_w.numel()
+    macs = nnz_h * in_w + nnz_w * out_h if h_first else nnz_w * in_h + nnz_h * out_w
+    return out_h, out_w, macs
+
+
 def axis_matrix(f: torch.Tensor, in_size: int, up: int, down: int, pad0: int, pad1: int,
                 flip_filter: bool, gain: float) -> torch.Tensor:
     """Dense f32 [out, in] operator of one axis on the 1-D filter's device:
@@ -235,27 +250,37 @@ def filter2d(x, f: Filter, padding=0, flip_filter=False, gain=1.0, impl="conv"):
 def upsample2d(x, f: Filter, up=2, padding=0, flip_filter=False, gain=1.0, impl="conv"):
     """Upsample NCHW maps by `up` with FIR filter `f`."""
     upx, upy = parse_scaling(up)
+    return upfirdn2d(x, f, up=up, padding=upsample2d_padding(f, up, padding),
+                     flip_filter=flip_filter, gain=gain * upx * upy, impl=impl)
+
+
+def upsample2d_padding(f: Filter, up=2, padding=0) -> list[int]:
+    """The [px0, px1, py0, py1] that `upsample2d` gives upfirdn2d."""
+    upx, upy = parse_scaling(up)
     px0, px1, py0, py1 = parse_padding(padding)
     fw, fh = filter_size(f)
-    p = [
+    return [
         px0 + (fw + upx - 1) // 2,
         px1 + (fw - upx) // 2,
         py0 + (fh + upy - 1) // 2,
         py1 + (fh - upy) // 2,
     ]
-    return upfirdn2d(x, f, up=up, padding=p, flip_filter=flip_filter,
-                     gain=gain * upx * upy, impl=impl)
 
 
 def downsample2d(x, f: Filter, down=2, padding=0, flip_filter=False, gain=1.0, impl="conv"):
     """Downsample NCHW maps by `down` with FIR filter `f`."""
+    return upfirdn2d(x, f, down=down, padding=downsample2d_padding(f, down, padding),
+                     flip_filter=flip_filter, gain=gain, impl=impl)
+
+
+def downsample2d_padding(f: Filter, down=2, padding=0) -> list[int]:
+    """The [px0, px1, py0, py1] that `downsample2d` gives upfirdn2d."""
     downx, downy = parse_scaling(down)
     px0, px1, py0, py1 = parse_padding(padding)
     fw, fh = filter_size(f)
-    p = [
+    return [
         px0 + (fw - downx + 1) // 2,
         px1 + (fw - downx) // 2,
         py0 + (fh - downy + 1) // 2,
         py1 + (fh - downy) // 2,
     ]
-    return upfirdn2d(x, f, down=down, padding=p, flip_filter=flip_filter, gain=gain, impl=impl)

@@ -27,7 +27,7 @@ from .models.generator_sres import SynthesisLayer, SynthesisNetwork
 from .ops import (filtered_lrelu_bands, filtered_lrelu_cuda, filtered_lrelu_exact,
                   filtered_lrelu_fused, filtered_lrelu_polyphase)
 from .ops.filtered_lrelu import filtered_lrelu_composed, output_size
-from .ops.upfirdn2d import axis_nonzeros, parse_padding
+from .ops.upfirdn2d import parse_padding, upfirdn2d_macs
 
 # Max-abs error relative to max|reference|. bf16: a few bf16 ulps, since the
 # input and output round to bf16 and the kernel sums in f32 (the bar of
@@ -362,32 +362,35 @@ def _layer_inputs(layer: SynthesisLayer, frames: int, dtype: torch.dtype,
     return x + b.reshape(1, -1, 1, 1), fu, fd, kw
 
 
+def filtered_lrelu_macs(layer: SynthesisLayer, backward: bool = False) -> tuple[int, int, int]:
+    """(out_h, out_w, multiply-adds per plane) of one layer's filtered_lrelu
+    (backward: its input gradient), tap-exact: the up pass H first (t1 =
+    Au . X, then U), the down pass W first (t3, then out), each the nonzeros
+    of its banded operator times the length of the other axis
+    (`upfirdn2d_macs`); the backward runs the six passes of the gradient
+    and recomputes U (s1, dZ, dt1, dX): twice the forward. The activation's
+    few operations per supersampled value are left out."""
+    h = layer.in_size[1] + layer.kernel - 1
+    w = layer.in_size[0] + layer.kernel - 1
+    fu_taps = 1 if layer.up_filter is None else layer.up_filter.shape[0]
+    fd_taps = 1 if layer.down_filter is None else layer.down_filter.shape[0]
+    hu, wu, up_macs = upfirdn2d_macs(h, w, fu_taps, up=layer.up_factor, padding=layer.padding)
+    ho, wo, down_macs = upfirdn2d_macs(hu, wu, fd_taps, down=layer.down_factor, h_first=False)
+    return ho, wo, (up_macs + down_macs) * (2 if backward else 1)
+
+
 def bound(layer: SynthesisLayer, frames: int, dtype: torch.dtype, backward: bool,
           peak_flops: Optional[float] = None) -> tuple[float, str]:
     """(ms, "operations" or "bytes"): the least time the card could take for
     one layer's filtered_lrelu (backward: its input gradient) on `frames` x
-    out_channels planes of type `dtype`. Operations: the tap-exact
-    multiply-adds of the four separable passes in the H-first order (the
-    nonzeros of each banded operator times the length of the other axis; six
-    passes and U recomputed for the backward), two each, at `peak_flops`
-    (`Kernel.peak_flops`; default the peak for `dtype`: bf16 maps and taps
-    make bf16 products summed in f32, the tensor cores' work); the
-    activation's few operations per supersampled value are left out.
-    Bytes: each input read once, the output written once, at the HBM peak."""
+    out_channels planes of type `dtype`. Operations: `filtered_lrelu_macs`,
+    two each, at `peak_flops` (`Kernel.peak_flops`; default the peak for
+    `dtype`: bf16 maps and taps make bf16 products summed in f32, the tensor
+    cores' work). Bytes: each input read once, the output written once, at
+    the HBM peak."""
     h = layer.in_size[1] + layer.kernel - 1
     w = layer.in_size[0] + layer.kernel - 1
-    px0, px1, py0, py1 = parse_padding(layer.padding)
-    up, down = layer.up_factor, layer.down_factor
-    fu_taps = 1 if layer.up_filter is None else layer.up_filter.shape[0]
-    fd_taps = 1 if layer.down_filter is None else layer.down_filter.shape[0]
-    hu, au, *_ = axis_nonzeros(h, up, 1, py0, py1, fu_taps)
-    wu, bu, *_ = axis_nonzeros(w, up, 1, px0, px1, fu_taps)
-    ho, ad, *_ = axis_nonzeros(hu, 1, down, 0, 0, fd_taps)
-    wo, bd, *_ = axis_nonzeros(wu, 1, down, 0, 0, fd_taps)
-    au, bu, ad, bd = (t.numel() for t in (au, bu, ad, bd))
-    macs = au * w + bu * hu + bd * hu + ad * wo          # t1, U, t3, out
-    if backward:
-        macs += ad * wo + bd * hu + bu * hu + au * w     # s1, dZ, dt1, dX
+    ho, wo, macs = filtered_lrelu_macs(layer, backward)
     planes = frames * layer.out_channels
     item = torch.finfo(dtype).bits // 8
     maps = h * w + ho * wo + (h * w if backward else 0)

@@ -51,7 +51,7 @@ from .parallel.multihost import (is_main_process, local_device,
 from .train.common import step_generator
 from .train.gan_lres import LowResVideoGAN
 from .train.stats import Collector, write_tick
-from .utils.misc import cli_device
+from .utils.misc import cli_device, set_matmul_precision
 
 
 def build_config(dataset_dir: str, total_batch: int, grad_accum: int, r1_gamma: float,
@@ -201,17 +201,6 @@ def train(c: dict, run_dir: str, seed: int, device: torch.device,
     data_iter.close()
     if stats_fp is not None:
         stats_fp.close()
-
-
-def set_matmul_precision(precision: str) -> None:
-    """`--matmul-precision`: "highest" turns TF32 off for cuDNN convolutions
-    and matmuls (the reference's f32), "high" allows it in matmuls too,
-    "default" leaves PyTorch's flags as they are."""
-    if precision == "highest":
-        torch.backends.cudnn.allow_tf32 = False
-        torch.set_float32_matmul_precision("highest")
-    elif precision == "high":
-        torch.set_float32_matmul_precision("high")
 
 
 def main(argv: Optional[list[str]] = None) -> str:

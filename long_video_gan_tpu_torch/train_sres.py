@@ -31,7 +31,10 @@ and only rank 0 writes.
     torchrun --nproc_per_node=8 -m long_video_gan_tpu_torch.train_sres \
         --dataset datasets/horseback --batch 32 --seed 1
 
-wandb is not ported.
+`--matmul-precision highest` turns TF32 off in cuDNN convolutions and
+matmuls, as its help says ("the reference's TF32-off f32"); the JAX CLI
+records the flag in `config.json` without applying it, and the port applies
+it as `train_lres` does. wandb is not ported.
 """
 
 from __future__ import annotations
@@ -52,7 +55,7 @@ from .parallel.multihost import (is_main_process, local_device,
 from .train.common import step_generator
 from .train.gan_sres import SuperResVideoGAN
 from .train.stats import Collector, write_tick
-from .utils.misc import cli_device
+from .utils.misc import cli_device, set_matmul_precision
 
 
 def build_config(dataset_dir: str, total_batch: int, grad_accum: int, r1_gamma: float,
@@ -265,6 +268,9 @@ def main(argv: Optional[list[str]] = None) -> str:
                         help="train checkpoint (ckpt-*-train.lvg, the port's or the JAX "
                              "package's) to continue from, at the step in its header")
     parser.add_argument("--total-steps", type=int, default=None)
+    parser.add_argument("--matmul-precision", choices=["default", "high", "highest"],
+                        default="default",
+                        help="'highest' turns TF32 off: the reference's f32 convolutions")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu; without a CUDA device, pass cpu")
     args = parser.parse_args(argv)
@@ -277,6 +283,7 @@ def main(argv: Optional[list[str]] = None) -> str:
         # Every process must use the same seed, so none can be drawn apart.
         assert world_size() == 1, "multi-host runs must pass --seed"
         args.seed = 0
+    set_matmul_precision(args.matmul_precision)
 
     from .utils.video import get_next_run_dir
 
@@ -286,6 +293,7 @@ def main(argv: Optional[list[str]] = None) -> str:
         c["total_steps"] = args.total_steps
     c.update(metrics=args.metrics, metric_detector=args.metric_detector,
              metric_items=args.metric_items)
+    c["matmul_precision"] = args.matmul_precision
     desc = (f"{Path(args.dataset_dir).name}-{args.total_batch}batch-{args.grad_accum}accum-"
             f"{args.r1_gamma}gamma")
     # Rank 0 picks the run directory and tells the others: each process

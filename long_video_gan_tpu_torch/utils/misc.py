@@ -1,4 +1,4 @@
-"""Small shared helpers (shape contracts, the CLIs' device)."""
+"""Small shared helpers (shape contracts, the CLIs' device and matmul precision)."""
 
 from __future__ import annotations
 
@@ -28,3 +28,14 @@ def cli_device(name: str) -> torch.device:
         raise RuntimeError(f"--device {name}: no CUDA device is available; pass "
                            f"--device cpu to run on the CPU")
     return device
+
+
+def set_matmul_precision(precision: str) -> None:
+    """The trainers' `--matmul-precision`: "highest" turns TF32 off for cuDNN
+    convolutions and matmuls (the reference's f32), "high" allows it in
+    matmuls too, "default" leaves PyTorch's flags as they are."""
+    if precision == "highest":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+    elif precision == "high":
+        torch.set_float32_matmul_precision("high")
