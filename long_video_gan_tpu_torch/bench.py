@@ -180,21 +180,6 @@ def kernel_launches() -> dict[str, int]:
             "K4": filtered_lrelu_exact.launches}
 
 
-def _line(kernel: str, check) -> str:
-    """One check as a line: its error against the bar and, for a gradient,
-    the readings beyond act' flips that its bars hold."""
-    flips = ""
-    if check.flips is not None:
-        flips = (f" beyond witnessed act' flips {check.beyond_flips_rel_err:.2e} (tol "
-                 f"{check.flip_tol:g}), flips {check.flips} of {check.near_zero} U near 0")
-    elif check.over is not None:
-        flips = (f" beyond act' flips {check.beyond_flips_rel_err:.2e} (tol {check.flip_tol:g}),"
-                 f" off by > {check.flip_tol:g} {check.over} of {check.elements}, "
-                 f"{check.over_in_reach} of them within reach of a U near 0")
-    return (f"{kernel} {check.name:<16} {check.dtype:<8} out {check.shape} rel_err "
-            f"{check.rel_err:.2e} (tol {check.tol:g}){flips} {'ok' if check.ok else 'FAIL'}")
-
-
 def guard(impl: str, device, frames: int = GUARD_FRAMES, log: TextIO = sys.stderr) -> bool:
     """The kernel `impl` runs (GUARD) against its plain version at its guard
     layer of the 144x256 plan, in that layer's type, on `frames` frames of
@@ -207,7 +192,7 @@ def guard(impl: str, device, frames: int = GUARD_FRAMES, log: TextIO = sys.stder
     name, layer = selftest.plan_layers()[index]
     check = selftest.check_layer(layer, name, frames, selftest.layer_dtype(layer), device,
                                  torch.Generator(device).manual_seed(0), kernel=kernel)
-    print(f"guard: impl={impl} {_line(kernel, check)}", file=log, flush=True)
+    print(f"guard: impl={impl} {selftest.describe(kernel, check)}", file=log, flush=True)
     return check.ok
 
 
@@ -223,7 +208,7 @@ def run_selftest(device) -> bool:
             name, layer = layers[i]
             check = selftest.check_layer(layer, name, SELFTEST_FRAMES,
                                          selftest.layer_dtype(layer), device, gen, kernel=kernel)
-            print(_line(kernel, check), flush=True)
+            print(selftest.describe(kernel, check), flush=True)
             ok, n = ok and check.ok, n + 1
     print(f"selftest: {'PASS' if ok else 'FAIL'} ({n} checks of {', '.join(SELFTEST_KERNELS)}, "
           f"{SELFTEST_FRAMES} frames)", flush=True)

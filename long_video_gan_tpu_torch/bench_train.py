@@ -26,8 +26,11 @@ and power limit.
 
 The defaults are the fastest configuration that fitted in a sweep on an
 NVIDIA H100 80GB HBM3 at 700 W (`scripts/torch_bench_train_sweep.py`).
-Not ported: the JAX script's XLA knobs (`--remat`, `--block-remat`,
-`--unroll-accum`).
+`--remat` and `--block-remat` are the trainers' (`train_sres`, `train_lres`):
+each G and D micro-batch loss, or each of G's blocks, recomputed in the
+backward; the record says which. Not ported: `--unroll-accum`, the unroll
+factor of the JAX accumulation `scan` (the port accumulates in a Python
+loop).
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from .train.common import step_generator
-from .utils.misc import cli_device
+from .utils.misc import add_remat_options, cli_device
 from .utils.profiling import gpu_name_and_power_limit
 
 LRES_METRIC = "lres_train_sec_per_step_batch64_seq128"
@@ -75,14 +78,17 @@ class Bench:
 
 
 def make_lres_bench(accum: int, fp16_layers: int = 0, d_fp16_res: int = 0,
-                    preset: str = "full", device="cuda") -> Bench:
+                    preset: str = "full", device="cuda", remat: bool = False,
+                    block_remat: bool = False) -> Bench:
     """The lres configuration: `train_lres`'s preset with total batch
-    BATCH["lres"][preset] in `accum` micro-batches, weights and one real
-    batch of N(0, 1) videos from SEED."""
+    BATCH["lres"][preset] in `accum` micro-batches (and its `--remat`,
+    `--block-remat`), weights and one real batch of N(0, 1) videos from
+    SEED."""
     from .train_lres import build_config, make_gan
 
     device = torch.device(device)
-    c = build_config("", BATCH["lres"][preset], accum, 1.0, preset, fp16_layers, d_fp16_res)
+    c = build_config("", BATCH["lres"][preset], accum, 1.0, preset, fp16_layers, d_fp16_res,
+                     remat, block_remat)
     gan = make_gan(c, device)
     gan.init_state(torch.Generator().manual_seed(SEED))
     data_gen = torch.Generator(device=device).manual_seed(SEED + 1)
@@ -92,18 +98,21 @@ def make_lres_bench(accum: int, fp16_layers: int = 0, d_fp16_res: int = 0,
               ("update_D", lambda g: gan.update_D(g, real), 1),
               ("update_r1", lambda g: gan.update_r1(g, real, gain=float(R1_EVERY)), R1_EVERY),
               ("update_G_ema", lambda g: gan.update_G_ema(), 1)]
-    return Bench(gan, phases, dict(metric=LRES_METRIC, grad_accum=accum,
-                                   fp16_layers=fp16_layers, d_fp16_res=d_fp16_res), device)
+    return Bench(gan, phases, dict(metric=LRES_METRIC, grad_accum=accum, remat=remat,
+                                   block_remat=block_remat, fp16_layers=fp16_layers,
+                                   d_fp16_res=d_fp16_res), device)
 
 
-def make_sres_bench(accum: int, preset: str = "full", device="cuda") -> Bench:
+def make_sres_bench(accum: int, preset: str = "full", device="cuda", remat: bool = False,
+                    block_remat: bool = False) -> Bench:
     """The sres configuration: `train_sres`'s preset with total batch
-    BATCH["sres"][preset] in `accum` micro-batches, weights and one batch
-    of N(0, 1) lr (with context) and hr clips from SEED."""
+    BATCH["sres"][preset] in `accum` micro-batches (and its `--remat`,
+    `--block-remat`), weights and one batch of N(0, 1) lr (with context) and
+    hr clips from SEED."""
     from .train_sres import build_config, make_gan
 
     device = torch.device(device)
-    c = build_config("", BATCH["sres"][preset], accum, 1.0, preset)
+    c = build_config("", BATCH["sres"][preset], accum, 1.0, preset, remat, block_remat)
     gan = make_gan(c, device)
     gan.init_state(torch.Generator().manual_seed(SEED))
     data_gen = torch.Generator(device=device).manual_seed(SEED + 1)
@@ -118,7 +127,8 @@ def make_sres_bench(accum: int, preset: str = "full", device="cuda") -> Bench:
               ("update_r1", lambda g: gan.update_r1(g, lr, hr, gain=float(R1_EVERY)), R1_EVERY),
               ("update_ada", lambda g: gan.update_ada(gain=float(ADA_EVERY)), ADA_EVERY),
               ("update_G_ema", lambda g: gan.update_G_ema(), 1)]
-    return Bench(gan, phases, dict(metric=SRES_METRIC, grad_accum=accum), device)
+    return Bench(gan, phases, dict(metric=SRES_METRIC, grad_accum=accum, remat=remat,
+                                   block_remat=block_remat), device)
 
 
 def synchronize(device: torch.device) -> None:
@@ -140,15 +150,15 @@ def check_finite(stats: dict) -> None:
         raise FloatingPointError(f"non-finite training statistics: {bad}")
 
 
-def measure(bench: Bench, steps: int) -> dict:
-    """The JSON record of `steps` timed steps after two warm-up cycles:
-    median and mean seconds per step, each step's seconds, the peak device
-    memory (GiB, None on the CPU) and the card. Raises if a loss of the last
-    step is not finite."""
+def measure(bench: Bench, steps: int, warmup_seeds: tuple = WARMUP_SEEDS) -> dict:
+    """The JSON record of `steps` timed steps after a warm-up cycle for each
+    of `warmup_seeds` (two by default): median and mean seconds per step,
+    each step's seconds, the peak device memory (GiB, None on the CPU) and
+    the card. Raises if a loss of the last step is not finite."""
     device = bench.device
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    for seed in WARMUP_SEEDS:
+    for seed in warmup_seeds:
         run_cycle(bench, 0, torch.Generator(device=device).manual_seed(seed))
         synchronize(device)
     per_step = []
@@ -176,12 +186,15 @@ def measure(bench: Bench, steps: int) -> dict:
 
 
 def bench_lres(accum: int, steps: int, fp16_layers: int = 0, d_fp16_res: int = 0,
-               preset: str = "full", device="cuda") -> dict:
-    return measure(make_lres_bench(accum, fp16_layers, d_fp16_res, preset, device), steps)
+               preset: str = "full", device="cuda", remat: bool = False,
+               block_remat: bool = False) -> dict:
+    return measure(make_lres_bench(accum, fp16_layers, d_fp16_res, preset, device, remat,
+                                   block_remat), steps)
 
 
-def bench_sres(accum: int, steps: int, preset: str = "full", device="cuda") -> dict:
-    return measure(make_sres_bench(accum, preset, device), steps)
+def bench_sres(accum: int, steps: int, preset: str = "full", device="cuda", remat: bool = False,
+               block_remat: bool = False) -> dict:
+    return measure(make_sres_bench(accum, preset, device, remat, block_remat), steps)
 
 
 def main(argv: Optional[list[str]] = None) -> list[dict]:
@@ -194,17 +207,19 @@ def main(argv: Optional[list[str]] = None) -> list[dict]:
                     help="run the last N lres generator layers in bf16")
     ap.add_argument("--lres-d-fp16-res", type=int, default=DEFAULT_LRES_D_FP16_RES,
                     help="run the first N lres discriminator blocks in bf16")
+    add_remat_options(ap)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; without a CUDA device, pass cpu")
     args = ap.parse_args(argv)
     device = cli_device(args.device)
+    remat = dict(remat=args.remat, block_remat=args.block_remat)
     out = []
     if args.config in ("lres", "both"):
         out.append(bench_lres(args.lres_accum, args.steps, args.lres_fp16_layers,
-                              args.lres_d_fp16_res, device=device))
+                              args.lres_d_fp16_res, device=device, **remat))
         print(json.dumps(out[-1]), flush=True)
     if args.config in ("sres", "both"):
-        out.append(bench_sres(args.sres_accum, args.steps, device=device))
+        out.append(bench_sres(args.sres_accum, args.steps, device=device, **remat))
         print(json.dumps(out[-1]), flush=True)
     return out
 

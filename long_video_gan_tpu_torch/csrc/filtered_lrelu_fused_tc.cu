@@ -60,6 +60,19 @@ filtered_lrelu_fused_bwd_tc_kernel(const T* __restrict__ x, const T* __restrict_
                                                    has_clamp);
 }
 
+// K3b that also stores each tile's U (check-only; f32 maps: after the small
+// partial products are added, as act' takes it).
+template <typename T>
+__global__ void __launch_bounds__(kThreads, FusedCfg<T>::kBwdSM)
+filtered_lrelu_fused_bwd_tc_u_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                                     T* __restrict__ dx, const bf16* __restrict__ ops,
+                                     const int* __restrict__ win, BwdParams p, float gain,
+                                     float slope, float clamp, int has_clamp,
+                                     float* __restrict__ u) {
+  bwd_tc<T, FusedCfg<T>::kS, FusedCfg<T>::kBwdG, true>(x, dy, dx, ops, win, p, gain, slope,
+                                                         clamp, has_clamp, u);
+}
+
 }  // namespace
 
 // As lvg_tc_fwd / lvg_tc_bwd (filtered_lrelu_tc.cu), for maps of the named
@@ -85,7 +98,22 @@ filtered_lrelu_fused_bwd_tc_kernel(const T* __restrict__ x, const T* __restrict_
                                              has_clamp, stream);                               \
   }
 
+// As lvg_fused_tc_bwd_*, also writing each tile's U to u (lvg_tc_bwd_u's
+// layout). Check-only.
+#define LVG_FUSED_TC_BWD_U(suffix, T)                                                          \
+  extern "C" int lvg_fused_tc_bwd_u_##suffix(const void* x, const void* dy, void* dx, void* u, \
+                                             const void* ops, const void* win,                 \
+                                             const int* params, int n_params, float gain,      \
+                                             float slope, float clamp, int has_clamp,          \
+                                             void* stream) {                                   \
+    return launch_bwd_tc<T, FusedCfg<T>::kS>(filtered_lrelu_fused_bwd_tc_u_kernel<T>, x, dy,   \
+                                             dx, ops, win, params, n_params, gain, slope,      \
+                                             clamp, has_clamp, stream, static_cast<float*>(u)); \
+  }
+
 LVG_FUSED_TC_FWD(bf16, bf16)
 LVG_FUSED_TC_FWD(f32, float)
 LVG_FUSED_TC_BWD(bf16, bf16)
 LVG_FUSED_TC_BWD(f32, float)
+LVG_FUSED_TC_BWD_U(bf16, bf16)
+LVG_FUSED_TC_BWD_U(f32, float)

@@ -36,6 +36,16 @@ filtered_lrelu_bwd_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict_
   bwd_tc<bf16, 1, kBwdGroup>(x, dy, dx, ops, win, p, gain, slope, clamp, has_clamp);
 }
 
+// K2 that also stores each tile's U (check-only: selftest holds the plain
+// version to the kernel's own act' decisions with it).
+__global__ void __launch_bounds__(kThreads, kBwdBlocksPerSM)
+filtered_lrelu_bwd_tc_u_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
+                               bf16* __restrict__ dx, const bf16* __restrict__ ops,
+                               const int* __restrict__ win, BwdParams p, float gain, float slope,
+                               float clamp, int has_clamp, float* __restrict__ u) {
+  bwd_tc<bf16, 1, kBwdGroup, true>(x, dy, dx, ops, win, p, gain, slope, clamp, has_clamp, u);
+}
+
 }  // namespace
 
 // x [planes, in_h, in_w] -> y [planes, out_h, out_w], bf16, contiguous. ops:
@@ -56,4 +66,14 @@ extern "C" int lvg_tc_bwd(const void* x, const void* dy, void* dx, const void* o
                           float slope, float clamp, int has_clamp, void* stream) {
   return launch_bwd_tc<bf16, 1>(filtered_lrelu_bwd_tc_kernel, x, dy, dx, ops, win, params,
                                 n_params, gain, slope, clamp, has_clamp, stream);
+}
+
+// lvg_tc_bwd that also writes U, as act' takes it, to u: f32 [tiles][rp][rp],
+// tiles in (plane, tile row, tile column) order. Check-only.
+extern "C" int lvg_tc_bwd_u(const void* x, const void* dy, void* dx, void* u, const void* ops,
+                            const void* win, const int* params, int n_params, float gain,
+                            float slope, float clamp, int has_clamp, void* stream) {
+  return launch_bwd_tc<bf16, 1>(filtered_lrelu_bwd_tc_u_kernel, x, dy, dx, ops, win, params,
+                                n_params, gain, slope, clamp, has_clamp, stream,
+                                static_cast<float*>(u));
 }

@@ -578,11 +578,16 @@ __host__ __device__ inline BwdSmem bwd_smem(const BwdParams& p) {
 }
 
 // K2 (T = bf16, kS = 1) and K3b (bf16, or f32 with kS = 3): dx at x along dy.
-template <typename T, int kS, int kG>
+// kDumpU (check-only builds): also store each tile's U, as act' takes it, to
+// u_out [tile][rp][rp] in f32, tiles in the walk's (plane, row, column)
+// order. Neighbouring tiles recompute overlapping windows, each in its own
+// summation order, so U is kept per tile, not per map position.
+template <typename T, int kS, int kG, bool kDumpU = false>
 __device__ __forceinline__ void bwd_tc(const T* __restrict__ x, const T* __restrict__ dy,
                                        T* __restrict__ dx, const bf16* __restrict__ ops,
                                        const int* __restrict__ win, const BwdParams& p,
-                                       float gain, float slope, float clamp, int has_clamp) {
+                                       float gain, float slope, float clamp, int has_clamp,
+                                       float* __restrict__ u_out = nullptr) {
   static_assert(kS == (sizeof(T) == 2 ? 1 : 3), "bf16 maps take one part, f32 maps three");
   extern __shared__ __align__(16) unsigned char smem[];
   const BwdSmem L = bwd_smem<kS>(p);
@@ -704,6 +709,12 @@ __device__ __forceinline__ void bwd_tc(const T* __restrict__ x, const T* __restr
               v += u_lo[g][j][e];
               dz[g][j][e] += dz_lo[g][j][e];
             }
+            if constexpr (kDumpU) {  // the fragment's (row, col), as store_item places it
+              const int lane = threadIdx.x & 31;
+              const int row = 16 * (g0 + g) + (lane >> 2) + 8 * (e >> 1);
+              const int col = 16 * nb + 8 * j + 2 * (lane & 3) + (e & 1);
+              u_out[((size_t)tile * p.rp + row) * p.rp + col] = v;
+            }
             float d = v >= 0.f ? gain : gain_neg;
             if (has_clamp) {
               const float z = (v >= 0.f ? v : v * slope) * gain;
@@ -786,11 +797,12 @@ int launch_fwd_tc(Kernel kernel, const void* x, void* y, const void* ops, const 
 
 // dy [planes, out_h, out_w], x and dx [planes, in_h, in_w], type T,
 // contiguous; ops, win, params as for launch_fwd_tc (BwdParams' order).
-// has_clamp = 0 for no clamp.
-template <typename T, int kS, typename Kernel>
+// has_clamp = 0 for no clamp. `extra`: the kernel's arguments after has_clamp
+// (a kDumpU kernel's U buffer).
+template <typename T, int kS, typename Kernel, typename... Extra>
 int launch_bwd_tc(Kernel kernel, const void* x, const void* dy, void* dx, const void* ops,
                   const void* win, const int* params, int n_params, float gain, float slope,
-                  float clamp, int has_clamp, void* stream) {
+                  float clamp, int has_clamp, void* stream, Extra... extra) {
   BwdParams p;
   if (!read_params(p, params, n_params)) return cudaErrorInvalidValue;
   if (p.tile % 16 || p.rp % 16 || p.px % 16 || p.pd % 16 || p.ops_elems % 8)
@@ -802,7 +814,7 @@ int launch_bwd_tc(Kernel kernel, const void* x, const void* dy, void* dx, const 
                            static_cast<cudaStream_t>(stream), static_cast<const T*>(x),
                            static_cast<const T*>(dy), static_cast<T*>(dx),
                            static_cast<const bf16*>(ops), static_cast<const int*>(win), p, gain,
-                           slope, clamp, has_clamp);
+                           slope, clamp, has_clamp, extra...);
 }
 
 }  // namespace

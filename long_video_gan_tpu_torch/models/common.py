@@ -20,6 +20,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..ops.bias_act import activation_funcs, bias_act
 from ..ops.filters import kaiser_resample_filter, tent_filter
@@ -65,6 +66,23 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> nn.Module:
             if hasattr(sub, "reset_parameters_"):
                 sub.reset_parameters_(generator)
     return module
+
+
+def checkpoint_block(first, again, *args):
+    """`first(*args)` under `torch.utils.checkpoint` (non-reentrant): its
+    activations are dropped and recomputed in the backward, by `again(*args)`,
+    the same block without its in-place updates (magnitude EMAs), which a
+    recompute would otherwise apply twice. It reads the updated values, as
+    `first` did after updating them. The counterpart of `nn.remat` around a
+    JAX block, whose recompute mutates nothing."""
+    calls = []
+
+    def run(*inputs):
+        fn = again if calls else first
+        calls.append(None)
+        return fn(*inputs)
+
+    return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)
 
 
 def randn_(param: torch.Tensor, generator: torch.Generator, std: float = 1.0) -> None:

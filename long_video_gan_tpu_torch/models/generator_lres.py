@@ -10,6 +10,7 @@ parameters' type (float32, or float64 in a `.double()` copy).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Sequence
 
@@ -28,6 +29,7 @@ from .common import (
     TemporalKaiserDownsample,
     TemporalLinearUpsample,
     center_crop,
+    checkpoint_block,
     normalize_2nd_moment,
     randn_,
 )
@@ -300,8 +302,11 @@ class VideoGenerator(nn.Module):
     the JAX package's construction math (scales, per-layer sizes, temporal
     bookkeeping), so its checkpoints line up layer for layer.
 
-    `block_remat` (a JAX training memory option stored in checkpoints'
-    kwargs) is accepted and does nothing at inference.
+    `block_remat`: recompute each `Synthesis3dResBlock` in the backward
+    (`checkpoint_block`, the JAX `nn.remat` of the block), the JAX training
+    memory option of the same name, stored in checkpoints' kwargs; without a
+    gradient it does nothing. The module tree and state dict are the same
+    either way.
     """
 
     def __init__(self, out_height: int = 36, out_width: int = 64, temporal_emb_dim: int = 1024,
@@ -311,7 +316,7 @@ class VideoGenerator(nn.Module):
                  embedding_kwargs: Optional[dict] = None, mapping_kwargs: Optional[dict] = None,
                  block_remat: bool = False, device=None):
         super().__init__()
-        del block_remat
+        self.block_remat = block_remat
         self.out_height, self.out_width = out_height, out_width
         self.temporal_emb_dim, self.latent_w_dim = temporal_emb_dim, latent_w_dim
         self.temporal_ksize, self.spatial_ksize = temporal_ksize, spatial_ksize
@@ -443,13 +448,17 @@ class VideoGenerator(nn.Module):
         assert_shape(temporal_input, (None, self.temporal_layers[0].in_channels, in_len))
 
         x = (temporal_input[:, :, :, None, None] + self.spatial_input) * math.sqrt(0.5)
-        w_index = 0
-        for layer, layer_len in zip(self.temporal_layers, seq_lengths):
-            x = layer(x, latent_ws[w_index], magnitude_ema_beta, layer_len, dtype)
-            w_index += 1
-        for layer in self.spatial_layers:
-            x = layer(x, latent_ws[w_index], magnitude_ema_beta, None, dtype)
-            w_index += 1
+        remat = self.block_remat and torch.is_grad_enabled()
+        blocks = [*zip(self.temporal_layers, seq_lengths),
+                  *((layer, None) for layer in self.spatial_layers)]
+        for w_index, (layer, layer_len) in enumerate(blocks):
+            if remat:
+                block = functools.partial(layer, out_seq_length=layer_len, dtype=dtype)
+                updating = functools.partial(block, magnitude_ema_beta=magnitude_ema_beta)
+                x = checkpoint_block(updating, block, x, latent_ws[w_index])
+            else:
+                x = layer(x, latent_ws[w_index], magnitude_ema_beta, layer_len, dtype)
+        w_index = len(blocks)
         video = self.to_rgb(x, latent_ws[w_index], magnitude_ema_beta, dtype=dtype)
         return video.float() * self.output_scale
 

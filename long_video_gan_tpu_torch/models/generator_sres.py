@@ -13,6 +13,7 @@ layer's `resample_impl`; "auto" sends the bf16 layers to the Hopper kernel.
 from __future__ import annotations
 
 import collections
+import functools
 import math
 from typing import Iterator, Optional
 
@@ -27,7 +28,7 @@ from ..ops.upfirdn2d import (downsample2d, downsample2d_padding, upfirdn2d_macs,
                              upsample2d, upsample2d_padding)
 from ..parallel.mesh import mean_over_processes
 from ..utils.misc import assert_shape
-from .common import FullyConnectedLayer, filter_buffer, randn_
+from .common import FullyConnectedLayer, checkpoint_block, filter_buffer, randn_
 
 
 def modulated_conv2d(
@@ -285,9 +286,14 @@ class SynthesisNetwork(nn.Module):
                  first_stopband: float = 2 ** 2.1, last_stopband_rel: float = 2 ** 0.3,
                  margin_size: int = 10, fourfeats: bool = False, output_scale: float = 0.25,
                  num_fp16_res: int = 4, conv_clamp: Optional[float] = 256.0,
-                 resample_impl: str = "conv", device=None):
+                 resample_impl: str = "conv", block_remat: bool = False, device=None):
         super().__init__()
         self.w_dim = w_dim
+        # Recompute each layer in the backward (`checkpoint_block`, the JAX
+        # `nn.remat(SynthesisLayer)`): a differentiated pass holds one layer's
+        # activations at a time, for a second forward per layer. The module
+        # tree, and so the state dict, is the same either way.
+        self.block_remat = block_remat
         self.img_width, self.img_height, self.img_channels = img_width, img_height, img_channels
         self.num_layers = num_layers
         self.fourfeats = fourfeats
@@ -345,10 +351,17 @@ class SynthesisNetwork(nn.Module):
                 force_fp32: bool = False, update_emas: bool = False) -> torch.Tensor:
         assert_shape(ws, (None, self.num_ws, self.w_dim))
         x = self.input(ws.shape[0]) if self.fourfeats else None
+        remat = self.block_remat and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
             cond = conds[i]
             x = cond if x is None else torch.cat([x, cond.to(x.dtype)], dim=1)
-            x = layer(x, ws[:, i].float(), force_fp32, update_emas)
+            if remat:
+                x = checkpoint_block(functools.partial(layer, force_fp32=force_fp32,
+                                                       update_emas=update_emas),
+                                     functools.partial(layer, force_fp32=force_fp32),
+                                     x, ws[:, i].float())
+            else:
+                x = layer(x, ws[:, i].float(), force_fp32, update_emas)
         if self.output_scale != 1:
             x = x * self.output_scale
         assert_shape(x, (None, self.img_channels, self.img_height, self.img_width))
@@ -418,7 +431,7 @@ class Generator(nn.Module):
                  img_channels: int, cond_width: int, cond_height: int, cond_context: int,
                  margin_size: int = 10, fourfeats: bool = False, num_fp16_res: int = 4,
                  channel_base: int = 32768, channel_max: int = 512, num_layers: int = 14,
-                 resample_impl: str = "conv", device=None):
+                 resample_impl: str = "conv", block_remat: bool = False, device=None):
         super().__init__()
         self.z_dim, self.w_dim = z_dim, w_dim
         self.img_width, self.img_height, self.img_channels = img_width, img_height, img_channels
@@ -429,7 +442,7 @@ class Generator(nn.Module):
             img_channels=img_channels, cond_channels=self.cond_channels,
             margin_size=margin_size, fourfeats=fourfeats, num_fp16_res=num_fp16_res,
             channel_base=channel_base, channel_max=channel_max, num_layers=num_layers,
-            resample_impl=resample_impl, device=device)
+            resample_impl=resample_impl, block_remat=block_remat, device=device)
         self.mapping = MappingNetwork(z_dim=z_dim, w_dim=w_dim,
                                       num_ws=self.synthesis.num_ws, device=device)
 
@@ -543,8 +556,9 @@ class VideoGenerator(nn.Module):
     """Super-res video generator: lr video [N, 3, T + 2*context, lh, lw] ->
     hr video [N, 3, T, hh, hw], one z per video.
 
-    `block_remat` (a JAX training memory option stored in checkpoints'
-    kwargs) is accepted and does nothing at inference.
+    `block_remat`: recompute each `SynthesisLayer` in the backward
+    (`SynthesisNetwork`), the JAX training memory option of the same name,
+    stored in checkpoints' kwargs; without a gradient it does nothing.
     """
 
     def __init__(self, hr_height: int = 256, hr_width: int = 256, lr_height: int = 32,
@@ -554,7 +568,6 @@ class VideoGenerator(nn.Module):
                  num_layers: int = 14, resample_impl: str = "conv", block_remat: bool = False,
                  device=None):
         super().__init__()
-        del block_remat
         self.hr_height, self.hr_width = hr_height, hr_width
         self.lr_height, self.lr_width = lr_height, lr_width
         self.temporal_context = temporal_context
@@ -564,7 +577,12 @@ class VideoGenerator(nn.Module):
             img_channels=3, cond_width=lr_width, cond_height=lr_height,
             cond_context=temporal_context, margin_size=margin_size, fourfeats=fourfeats,
             num_fp16_res=num_fp16_res, channel_base=channel_base, channel_max=channel_max,
-            num_layers=num_layers, resample_impl=resample_impl, device=device)
+            num_layers=num_layers, resample_impl=resample_impl, block_remat=block_remat,
+            device=device)
+
+    @property
+    def block_remat(self) -> bool:
+        return self.SG3.synthesis.block_remat
 
     def forward(self, lr_video: torch.Tensor, z: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,

@@ -19,6 +19,9 @@ to summation order.
 tensor-core kernels of K1 and K2 (csrc/filtered_lrelu_tc.cu): for a tile of
 T outputs (dX) per axis, the blocks of Au, Ad (Ad^T, Au^T) that every tile
 of a layer reads, and the 16-wide K-windows of their bands.
+`tiled_fwd_plain` and `tiled_bwd_plain` contract those plans tile by tile,
+as the kernels do; `tiled_bwd_plain` can take act' from a kernel's own U
+(`selftest` holds K2 and K3b to it there).
 """
 
 from __future__ import annotations
@@ -143,52 +146,6 @@ def act_flip_bound(x: torch.Tensor, dy: torch.Tensor, fu: Filter, fd: Filter, up
     dz = (stage(ad.T @ dy.reshape(n * c, *dy.shape[2:]).float()) @ bd).abs()
     dz = torch.where(u.abs() < delta, dz, 0.0)
     return (abs(1.0 - slope) * gain * (au.abs().T @ dz @ bu.abs())).reshape(n, c, h, w)
-
-
-def act_flip_witness(x: torch.Tensor, dy: torch.Tensor, err: torch.Tensor, fu: Filter,
-                     fd: Filter, up: int, down: int, padding, gain: float, slope: float,
-                     clamp: Optional[float]) -> tuple[torch.Tensor, int, int]:
-    """For f32 maps: the part of `err`, another computation's dX minus
-    `banded_bwd_plain`'s at bias-added `x` along `dy`, that act' taking the
-    other side of its jump at single U elements explains, with the flips and
-    the U near 0 counted: (explained, flips, near).
-
-    A U is near 0 where |U| (in f64) is within f32 rounding of 0:
-    (n + m + 8) * 2**-24 * (|Au| . |X| . |Bu|^T), n and m the nonzeros of a
-    row of Au and Bu (f32 sums of that many products, and three-part bf16
-    operands, stages and dropped partial products). Only there can two f32
-    summation orders disagree on sign(U). The flip at such a U moves dX by
-    D = (g' - g) * dZ * Au[i]^T (x) Bu[j], g = act'(U) as the plain version
-    takes it, g' the other side; it counts as a flip, and D is explained,
-    where projecting `err` on D gives more than half of D. What is left,
-    err - explained, is the error beyond witnessed flips."""
-    (au, bu, ad, bd), stage = _plain_setup(x, fu, fd, up, down, padding)
-    n, c, h, w = x.shape
-    x32 = x.reshape(n * c, h, w).float()
-    u = stage(au @ x32) @ bu.T                      # the plain version's U
-    au64, bu64, ad64, bd64 = (m.double() for m in (au, bu, ad, bd))
-    x64 = x32.double()
-    u64 = au64 @ x64 @ bu64.T
-    rows = lambda m: int((m != 0).sum(1).max())    # noqa: E731
-    scale = au64.abs() @ x64.abs() @ bu64.abs().T
-    near = u64.abs() <= (rows(au) + rows(bu) + 8) * 2.0 ** -24 * scale
-    p, i, j = near.nonzero(as_tuple=True)
-    explained = torch.zeros_like(err, dtype=torch.float64).reshape(n * c, h, w)
-    if p.numel() == 0:
-        return explained.reshape(err.shape), 0, 0
-    dz = (ad64.T @ dy.reshape(n * c, *dy.shape[2:]).double() @ bd64)[p, i, j]
-    # g' - g at each near U, act'(U) taken as the plain version takes it
-    side = (u[p, i, j] >= 0).double()
-    dg = (1.0 - 2.0 * side) * (1.0 - slope) * gain
-    a, b = au64[i], bu64[j]                         # [K, h], [K, w]
-    e = err.reshape(n * c, h, w).double()[p]
-    along = torch.einsum("kh,khw,kw->k", a, e, b)   # <err, Au[i]^T (x) Bu[j]>
-    amp = dg * dz                                   # D = amp * Au[i]^T (x) Bu[j]
-    norm2 = a.square().sum(1) * b.square().sum(1)
-    flip = along * amp > 0.5 * amp.square() * norm2   # <err, D> > <D, D> / 2
-    move = amp[flip, None, None] * a[flip, :, None] * b[flip, None, :]
-    explained.index_add_(0, p[flip], move)
-    return explained.reshape(err.shape), int(flip.sum()), int(p.numel())
 
 
 # ---------------------------------------------------------------------------
@@ -481,3 +438,141 @@ def bwd_executed_macs(plan: BwdPlan, widths: dict, tiles: int) -> int:
 def tile_counts(h: int, w: int, tile: int) -> tuple[int, int]:
     """(tiles down, tiles across) covering an h x w map."""
     return -(-h // tile), -(-w // tile)
+
+
+# ---------------------------------------------------------------------------
+# The tile plans contracted tile by tile, as the tensor-core kernels contract
+# them: only the K-blocks of each window, at the kernels' fixed window widths;
+# patches zero outside the map; ragged edge tiles cropped.
+
+
+def tile_patches(x: torch.Tensor, starts_y: list, starts_x: list, size: int) -> torch.Tensor:
+    """[tiles, planes, size, size] patches of x [planes, H, W] at each
+    (start_y, start_x), tiles in row-major order, zero outside the map."""
+    pad = size + max(abs(s) for s in (*starts_y, *starts_x))
+    xp = torch.nn.functional.pad(x, (pad, pad, pad, pad))
+    return torch.stack([xp[:, pad + sy:pad + sy + size, pad + sx:pad + sx + size]
+                        for sy in starts_y for sx in starts_x])
+
+
+def windowed_op(op: AxisOp, kb: int, taps: torch.Tensor, rounded) -> torch.Tensor:
+    """The operator block, its entries `rounded`, with every entry outside
+    its 16-row blocks' kernel windows (`kb` K-blocks each) dropped:
+    contracting it is contracting only the windows, as the kernels do, and a
+    window that missed a nonzero of the band drops it."""
+    block = rounded(op.values(taps))
+    keep = torch.zeros_like(block, dtype=torch.bool)
+    for m, (k0, k1) in enumerate(op.kernel_windows(kb)):
+        keep[MMA_K * m:MMA_K * (m + 1), MMA_K * k0:MMA_K * k1] = True
+    return torch.where(keep, block, torch.zeros((), device=block.device))
+
+
+def band_lhs(op: AxisOp, kb: int, b: torch.Tensor, taps: torch.Tensor, rounded,
+             mm=torch.matmul) -> torch.Tensor:
+    """op [M, K] . b [..., K, N], windows per 16-row block of op: an
+    A-operand band (the kernels' t1, s1, out and dX products)."""
+    return mm(windowed_op(op, kb, taps, rounded), b)
+
+
+def band_rhs(a: torch.Tensor, op: AxisOp, kb: int, taps: torch.Tensor, rounded,
+             mm=torch.matmul) -> torch.Tensor:
+    """a [..., M, K] . op^T, op stored [N, K]: a B-operand band (U, t3, dZ,
+    dt1), windows per 16 columns of the result."""
+    return mm(a, windowed_op(op, kb, taps, rounded).T)
+
+
+def untile(tiles: torch.Tensor, ty: int, tx: int, tile: int, h: int, w: int) -> torch.Tensor:
+    """[ty*tx, planes, T, T] tiles -> [planes, h, w], the edge tiles cropped."""
+    t = tiles.reshape(ty, tx, tiles.shape[1], tile, tile).permute(2, 0, 3, 1, 4)
+    return t.reshape(tiles.shape[1], ty * tile, tx * tile)[:, :h, :w]
+
+
+def _staged(x: torch.Tensor, plan, widths: dict, taps: torch.Tensor, mm):
+    """The stage rounding to x's type, and the plan's band products by
+    operator name: lhs(name, b) = op . b and rhs(a, name) = a . op^T."""
+    rounded = lambda t: t.to(x.dtype).float()   # noqa: E731
+
+    def lhs(name, b):
+        return band_lhs(plan.ops[name], widths[name], b, taps, rounded, mm)
+
+    def rhs(a, name):
+        return band_rhs(a, plan.ops[name], widths[name], taps, rounded, mm)
+
+    return rounded, lhs, rhs
+
+
+def tiled_fwd_plain(x: torch.Tensor, plan: FwdPlan, widths: dict, taps: torch.Tensor,
+                    gain: float, slope: float, clamp: Optional[float], out_hw: tuple,
+                    mm=torch.matmul) -> torch.Tensor:
+    """K1's and K3a's contraction of x [planes, H, W]: per T x T output
+    tile, t1 = Au . X (patch), U = t1 . Bu^T, Z = act(U), t3 = Z . Bd^T,
+    out = Ad . t3, stages rounded to x's type; every product is `mm`.
+    `widths`: each operator's window in K-blocks, `taps`: the kernel's f32
+    taps (`filtered_lrelu_cuda.kernel_geometry`)."""
+    rounded, lhs, rhs = _staged(x, plan, widths, taps, mm)
+    (oh, ow), tile = out_hw, plan.tile
+    ty, tx = tile_counts(oh, ow, tile)
+    xp = tile_patches(x.float(), [t * plan.step + plan.y.base for t in range(ty)],
+                      [t * plan.step + plan.x.base for t in range(tx)], plan.pp)
+    t1 = rounded(lhs("au_y", xp))
+    z = rounded(act(rhs(t1, "au_x"), gain, slope, clamp))
+    t3 = rounded(rhs(z, "ad_x"))
+    return untile(lhs("ad_y", t3), ty, tx, tile, oh, ow).to(x.dtype)
+
+
+def _bwd_patches(x: torch.Tensor, dy: Optional[torch.Tensor], plan: BwdPlan):
+    """(tiles down, tiles across, x patches, dy patches or None)."""
+    ty, tx = tile_counts(x.shape[1], x.shape[2], plan.tile)
+    xp = tile_patches(x.float(), [t * plan.tile + plan.y.x_base for t in range(ty)],
+                      [t * plan.tile + plan.x.x_base for t in range(tx)], plan.px)
+    dp = None if dy is None else tile_patches(
+        dy.float(), [t * plan.dstep + plan.y.d_base for t in range(ty)],
+        [t * plan.dstep + plan.x.d_base for t in range(tx)], plan.pd)
+    return ty, tx, xp, dp
+
+
+def tiled_bwd_plain(x: torch.Tensor, dy: torch.Tensor, plan: BwdPlan, widths: dict,
+                    taps: torch.Tensor, gain: float, slope: float, clamp: Optional[float],
+                    u: Optional[torch.Tensor] = None, mm=torch.matmul, return_u: bool = False):
+    """K2's and K3b's contraction of x [planes, H, W] along dy [planes, OH,
+    OW]: per T x T dX tile, t1 = Au . X, s1 = Ad^T . dY, U = t1 . Bu^T,
+    dU = (s1 . Bd) * act'(U), dt1 = dU . Bu, dX = Au^T . dt1, stages rounded
+    to x's type, every product `mm`. `u` [tiles, planes, rp, rp] (tiles in
+    row-major order, as `tile_patches`): act' taken from these values, a
+    kernel's own U per tile, in place of this U; every other stage is
+    computed here. Returns dX, or (dX, this U) with `return_u`."""
+    rounded, lhs, rhs = _staged(x, plan, widths, taps, mm)
+    (h, w), tile = x.shape[1:], plan.tile
+    ty, tx, xp, dp = _bwd_patches(x, dy, plan)
+    own_u = rhs(rounded(lhs("au_y", xp)), "au_x")
+    g = act_grad(own_u if u is None else u, gain, slope, clamp)
+    if not return_u:
+        del own_u
+    du = rounded(rhs(rounded(lhs("adt_y", dp)), "adt_x") * g)
+    del g
+    dt1 = rounded(rhs(du, "aut_x"))
+    del du
+    dx = untile(lhs("aut_y", dt1), ty, tx, tile, h, w).to(x.dtype)
+    return (dx, own_u) if return_u else dx
+
+
+def tiled_u_reach(x: torch.Tensor, plan: BwdPlan, widths: dict, taps: torch.Tensor,
+                  near: float) -> torch.Tensor:
+    """How far another summation order can move `tiled_bwd_plain`'s U,
+    broadcastable against it [tiles, planes, rp, rp]. bf16 maps: `near` *
+    max|t1| (per plane) * max|Bu|, the reach `act_flip_bound` assumes (one t1
+    rounded the other way). f32 maps: (n + m + 8) * 2**-24 * (|Au| . |X| .
+    |Bu|^T) per element, n and m the nonzeros of a row of the Au and Bu
+    blocks: f32 sums of that many products, and three-part bf16 operands,
+    stages and dropped partial products."""
+    _, _, xp, _ = _bwd_patches(x, None, plan)
+    if x.dtype == torch.bfloat16:
+        rounded, lhs, _ = _staged(x, plan, widths, taps, torch.matmul)
+        bu = windowed_op(plan.ops["au_x"], widths["au_x"], taps, rounded)
+        return near * rounded(lhs("au_y", xp)).abs().amax((0, 2, 3), keepdim=True) * bu.abs().max()
+    absolute = lambda t: t.abs()   # noqa: E731
+    au, bu = plan.ops["au_y"], plan.ops["au_x"]
+    scale = band_rhs(band_lhs(au, widths["au_y"], xp.abs(), taps, absolute), bu, widths["au_x"],
+                     taps, absolute)
+    rows = lambda op: int((op.index >= 0).sum(1).max())   # noqa: E731
+    return (rows(au) + rows(bu) + 8) * 2.0 ** -24 * scale

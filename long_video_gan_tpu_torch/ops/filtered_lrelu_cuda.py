@@ -77,13 +77,17 @@ _TC_PARAMS = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
 TC_FWD_ARGS = [ctypes.c_void_p] * 4 + _TC_PARAMS + [ctypes.c_float] * 3 + [ctypes.c_void_p]
 TC_BWD_ARGS = ([ctypes.c_void_p] * 5 + _TC_PARAMS + [ctypes.c_float] * 3
                + [ctypes.c_int, ctypes.c_void_p])
+# The check-only backward that also writes each tile's U: x, dy, dx, u, then
+# as TC_BWD_ARGS from ops on.
+TC_BWD_U_ARGS = [ctypes.c_void_p] + TC_BWD_ARGS
 
 
 @functools.lru_cache(maxsize=None)
 def tc_library() -> ctypes.CDLL:
     """Build (at first use) and load the bf16 tensor-core kernels' library."""
     return load_library("filtered_lrelu_tc.cu", {"lvg_tc_fwd": TC_FWD_ARGS,
-                                                 "lvg_tc_bwd": TC_BWD_ARGS})
+                                                 "lvg_tc_bwd": TC_BWD_ARGS,
+                                                 "lvg_tc_bwd_u": TC_BWD_U_ARGS})
 
 
 def filtered_lrelu_packed(x: torch.Tensor, fu: Filter = None, fd: Filter = None,
@@ -257,20 +261,73 @@ def launch_tc_fwd(fn, x: torch.Tensor, y: torch.Tensor, up: int, down: int, geom
 
 def launch_tc_bwd(fn, x: torch.Tensor, dy: torch.Tensor, dx: torch.Tensor, up: int, down: int,
                   geometry, gain: float, slope: float, clamp: Optional[float],
-                  tile: int = TILE) -> int:
+                  tile: int = TILE, u: Optional[torch.Tensor] = None) -> int:
     """Launch the tensor-core backward C function `fn` (K2, K3b) over
     `tile`-wide dX tiles: dx at bias-added `x` along `dy`; returns its
-    cudaError_t."""
+    cudaError_t. `u`: the f32 buffer of a check-only `fn` that also writes
+    each tile's U (`bwd_u_cuda`)."""
     pad, out_h, out_w, taps, n_fu, n_fd = geometry
     n, c, h, w = x.shape
     plan, index, windows, where = _tc_plan(True, up, down, pad, n_fu, n_fd, x.device, tile)
     ops = _tc_ops(index, taps, tc_parts(x))
     params = tc_params(True, plan, index, windows, where, (n * c, h, w, out_h, out_w),
                        (_aligned(x, w, tile), _aligned(dy, out_w, plan.dstep)))
-    return fn(x.data_ptr(), dy.data_ptr(), dx.data_ptr(), ops.data_ptr(), windows.data_ptr(),
+    buffers = (x, dy, dx) if u is None else (x, dy, dx, u)
+    return fn(*(t.data_ptr() for t in buffers), ops.data_ptr(), windows.data_ptr(),
               *_c_ints(params), float(gain), float(slope),
               math.inf if clamp is None else float(clamp), 0 if clamp is None else 1,
               _stream(x))
+
+
+def bwd_tile_setup(x: torch.Tensor, fu: Filter, fd: Filter, up: int, down: int, padding,
+                   tile: int = TILE):
+    """(plan, window widths, f32 taps) of a tensor-core backward launch on
+    `x` over `tile`-wide tiles: what `filtered_lrelu_bands.tiled_bwd_plain`
+    contracts."""
+    pad, _, _, taps, n_fu, n_fd = kernel_geometry(x, fu, fd, up, down, padding)
+    plan, _, _, where = _tc_plan(True, up, down, pad, n_fu, n_fd, torch.device("cpu"), tile)
+    return plan, {name: ref[3] for name, ref in where.items()}, taps
+
+
+def bwd_u_cuda(library, symbol: str, x: torch.Tensor, dy: torch.Tensor, fu: Filter,
+               fd: Filter, up: int, down: int, padding, gain: float, slope: float,
+               clamp: Optional[float], tile: int = TILE) -> tuple:
+    """Check-only: dX at bias-added NCHW `x` along `dy`, the U of every tile
+    as act' takes it, f32 [tiles, planes, rp, rp] (tiles in row-major order,
+    `tiled_bwd_plain`'s layout), and the tile setup that contracts it
+    (`bwd_tile_setup`), from C function `symbol` of `library()`, a build of
+    the K2/K3b bodies that also writes U. A CPU tensor takes the tile
+    contraction, `tiled_bwd_plain` at its own U. Counts no launch."""
+    n, c, h, w = x.shape
+    setup = bwd_tile_setup(x, fu, fd, up, down, padding, tile)
+    plan = setup[0]
+    if x.device.type == "cpu":
+        dx, u = bands.tiled_bwd_plain(x.reshape(n * c, h, w), dy.reshape(n * c, *dy.shape[2:]),
+                                      *setup, gain, slope, clamp, return_u=True)
+        return dx.reshape(x.shape), u, setup
+    check_input(x, "input")
+    geometry = kernel_geometry(x, fu, fd, up, down, padding)
+    check_gradient(x, dy, geometry[1:3], "backward")
+    tiles = math.prod(bands.tile_counts(h, w, tile))
+    dx = torch.empty_like(x)
+    u = torch.empty((n * c, tiles, plan.rp, plan.rp), dtype=torch.float32, device=x.device)
+    lib = library()
+    with torch.cuda.device(x.device):
+        rc = launch_tc_bwd(getattr(lib, symbol), x, dy, dx, up, down, geometry, gain, slope,
+                           clamp, tile, u)
+    raise_on_error(lib, rc, "check-only backward")
+    return dx, u.transpose(0, 1), setup
+
+
+def filtered_lrelu_bwd_u_cuda(x: torch.Tensor, dy: torch.Tensor, fu: Filter, fd: Filter,
+                              up: int, down: int, padding, gain: float, slope: float,
+                              clamp: Optional[float]) -> tuple:
+    """K2 in bf16 with each tile's U (`bwd_u_cuda`); check-only, counts no
+    launch. f32 maps have no such build: their K2 is csrc/filtered_lrelu_bwd.cu."""
+    if x.device.type != "cpu" and x.dtype != torch.bfloat16:
+        raise TypeError(f"K2's U is written by its bf16 tensor-core kernel only, got {x.dtype}")
+    return bwd_u_cuda(tc_library, "lvg_tc_bwd_u", x, dy, fu, fd, up, down, padding, gain,
+                      slope, clamp)
 
 
 def check_gradient(x: torch.Tensor, dy: torch.Tensor, out_hw: tuple, which: str) -> None:

@@ -39,8 +39,9 @@ import torch
 from ..utils.nvcc import load_library
 from . import filtered_lrelu_cuda as cuda
 from .filtered_lrelu_bands import banded_bwd_plain, banded_fwd_plain
-from .filtered_lrelu_cuda import (TC_BWD_ARGS, TC_FWD_ARGS, check_gradient, check_input,
-                                  kernel_geometry, launch_tc_bwd, launch_tc_fwd, raise_on_error)
+from .filtered_lrelu_cuda import (TC_BWD_ARGS, TC_BWD_U_ARGS, TC_FWD_ARGS, bwd_u_cuda,
+                                  check_gradient, check_input, kernel_geometry, launch_tc_bwd,
+                                  launch_tc_fwd, raise_on_error)
 from .upfirdn2d import Filter, parse_padding
 
 SOURCE = "long_video_gan_tpu_torch/csrc/filtered_lrelu_fused_tc.cu"
@@ -55,7 +56,8 @@ def library() -> ctypes.CDLL:
     """Build (at first use) and load K3a and K3b."""
     return load_library("filtered_lrelu_fused_tc.cu", {
         "lvg_fused_tc_fwd_bf16": TC_FWD_ARGS, "lvg_fused_tc_fwd_f32": TC_FWD_ARGS,
-        "lvg_fused_tc_bwd_bf16": TC_BWD_ARGS, "lvg_fused_tc_bwd_f32": TC_BWD_ARGS})
+        "lvg_fused_tc_bwd_bf16": TC_BWD_ARGS, "lvg_fused_tc_bwd_f32": TC_BWD_ARGS,
+        "lvg_fused_tc_bwd_u_bf16": TC_BWD_U_ARGS, "lvg_fused_tc_bwd_u_f32": TC_BWD_U_ARGS})
 
 
 def tile_for(backward: bool, dtype: torch.dtype, up: int) -> int:
@@ -153,3 +155,12 @@ def fused_bwd_cuda(x: torch.Tensor, dy: torch.Tensor, fu: Filter, fd: Filter, up
     raise_on_error(lib, rc, "fused backward")
     bwd_launches += 1
     return dx
+
+
+def fused_bwd_u_cuda(x: torch.Tensor, dy: torch.Tensor, fu: Filter, fd: Filter, up: int,
+                     down: int, padding, gain: float, slope: float,
+                     clamp: Optional[float]) -> tuple:
+    """K3b with each tile's U (`filtered_lrelu_cuda.bwd_u_cuda`), at the tile
+    K3b takes; check-only, counts no launch."""
+    return bwd_u_cuda(library, f"lvg_fused_tc_bwd_u_{_suffix(x)}", x, dy, fu, fd, up, down,
+                      padding, gain, slope, clamp, tile_for(True, x.dtype, up))

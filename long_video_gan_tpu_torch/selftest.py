@@ -54,26 +54,40 @@ EXACT_F32_TOL = 1e-6
 # bar there (tests/test_torch_filtered_lrelu_cuda.py).
 K1_TOL = 2.0 ** -7
 K1_ULP_SHARE = 1e-4
-# K2 and K3b in bf16: act' jumps at U = 0, so where another summation order
-# puts a U near 0 on the other side, dX moves by up to a few hundredths of its
-# scale (the bar of TOLS). Held besides: the error beyond the most such flips
-# can move each element (`filtered_lrelu_bands.act_flip_bound` over the U
-# within FLIP_NEAR) within one bf16 ulp of the scale, and at most
+# K2 and K3b: act' jumps at U = 0, so where another summation order puts a
+# U near 0 on the other side, dX moves by up to a few hundredths of its scale
+# (the H100 read 4.42e-2 at K3b's L9 in bf16 and 1.5e-2 at L0-L1 in f32
+# against the plain version). A max-abs bar on the raw error would have to
+# admit that; so their check-only builds write U per tile, as act' takes it
+# (`filtered_lrelu_cuda.bwd_u_cuda`), and the tile contraction
+# (`filtered_lrelu_bands.tiled_bwd_plain`) is held to the kernel at exactly
+# those decisions:
+# (i)   every element of the kernel's U within the reach another summation
+#       order has of the contraction's own U (`tiled_u_reach`): in bf16
+#       FLIP_NEAR * max|t1| * max|Bu| per plane (one t1 rounded the other
+#       way), in f32 (n + m + 8) * 2**-24 * (|Au| . |X| . |Bu|^T). A wrong
+#       tap, padding, window or plane fails here; the sign disagreements,
+#       which (i) confines to U within that reach of 0, are counted;
+# (ii)  the kernel's dX against the contraction's with act' at the kernel's
+#       U: in bf16 at K1's two bars (K1_TOL of the scale, K1_ULP_SHARE of
+#       the elements beyond one ulp of their own), in f32 at TOLS[f32] of the
+#       scale at every element;
+# (iii) the check-only launch's dX bit-equal to the production launch's.
+# Per tile, not per map position: neighbouring tiles recompute overlapping
+# windows, each in its own summation order. (i)-(iii) replace, for K2 and
+# K3b in bf16, the raw TOLS[bf16] bar (the raw error stays a reading) and,
+# for K3b in f32, the greedy attribution of flips that stood there before.
+# In bf16 K2's bars beyond flips stay besides: the error beyond the most such
+# flips can move each element (`filtered_lrelu_bands.act_flip_bound` over the
+# U within FLIP_NEAR) within one bf16 ulp of the scale, and at most
 # K2_OVER_SHARE of the elements more than one bf16 ulp of the scale off (the
 # H100 reads at most 2e-8, every such element within reach of a U near 0;
-# f32 stages put fifty times the bar or more there).
+# f32 stages put fifty times the bar or more there). K2 on f32 maps is
+# csrc/filtered_lrelu_bwd.cu, which has no U to show: TOLS[f32] on the raw
+# error.
 FLIP_NEAR = 2.0 ** -7
 K2_RESIDUAL_TOL = 2.0 ** -7
 K2_OVER_SHARE = 1e-5
-# K3b in f32: the same jump. Its tensor-core products sum in another order
-# than the plain version's f32 matmuls, so a U within f32 rounding of 0 can
-# take the other side of it, and dX moves there by up to a few hundredths of
-# its scale (the H100 read up to 1.5e-2 at L0-L1 over 64 frames, at 24 and 40
-# of their 3.9e7 elements). So K3b in f32 is held to TOLS[f32] at every
-# element after the moves of witnessed flips are taken out: a flip counts
-# only at a U that f64 puts within f32 rounding of 0, and only where the
-# error has that flip's own shape and sign
-# (`filtered_lrelu_bands.act_flip_witness`).
 
 # The bf16 layers of the 144x256 plan that launch K1/K2 (L14, ToRGB, is an
 # identity resample and takes the composed path).
@@ -82,6 +96,9 @@ KERNEL_LAYERS = tuple(range(3, 14))
 # Frames per slice of the plain reference: at a training micro-batch (64
 # frames) the reference of an up-4 layer would not fit the card at once.
 REF_FRAMES = 16
+# Frames per chunk of the tile contraction inside a slice: it holds several
+# [tiles, planes, rp, rp] f32 stages (3.1 GB each at L10 and 8 frames).
+TILE_FRAMES = 8
 
 # The card's published dense peaks (NVIDIA H100 SXM data sheet, 700 W, no
 # sparsity): bf16 products on the tensor cores, f32 outside them, and HBM.
@@ -106,6 +123,8 @@ class Kernel:
     backward: bool
     launch: Callable
     plain: Callable
+    launch_u: Optional[Callable] = None      # check-only launch: dX, U per tile, setup (K2, K3b)
+    tile_dtypes: tuple = ()                  # map types held at their own act' decisions
     f32_reference: bool = True
     f32_tol: float = TOLS[torch.float32]
     bf16_tol: float = TOLS[torch.bfloat16]
@@ -113,7 +132,6 @@ class Kernel:
     bf16_ulp_share: Optional[float] = None   # K1_ULP_SHARE's bar in bf16 (K1, K3a)
     bf16_flip_bars: bool = False             # K2's bars beyond act' flips in bf16 (K2, K3b)
     bf16_half_ulp: bool = False              # bf16 tol beyond half an ulp per element (K4, K5)
-    f32_flip_witness: bool = False           # f32 bar beyond witnessed act' flips (K3b)
     split_f32: bool = False                  # f32 maps as three-part bf16 products (K3a, K3b)
 
     def tol(self, dtype: torch.dtype) -> float:
@@ -140,12 +158,14 @@ KERNELS = {k.name: k for k in (
     Kernel("K1", False, filtered_lrelu_cuda.filtered_lrelu_fwd_cuda, _bands.banded_fwd_plain,
            f32_reference=False, bf16_tol=K1_TOL, bf16_ulp_share=K1_ULP_SHARE),
     Kernel("K2", True, filtered_lrelu_cuda.filtered_lrelu_bwd_cuda, _bands.banded_bwd_plain,
+           filtered_lrelu_cuda.filtered_lrelu_bwd_u_cuda, (torch.bfloat16,),
            f32_reference=False, bf16_flip_bars=True),
     Kernel("K3a", False, filtered_lrelu_fused.fused_fwd_cuda, _bands.banded_fwd_plain,
            f32_reference=False, f32_tol=EXACT_F32_TOL, bf16_tol=K1_TOL,
            bf16_ulp_share=K1_ULP_SHARE, split_f32=True),
     Kernel("K3b", True, filtered_lrelu_fused.fused_bwd_cuda, _bands.banded_bwd_plain,
-           f32_reference=False, bf16_flip_bars=True, f32_flip_witness=True, split_f32=True),
+           filtered_lrelu_fused.fused_bwd_u_cuda, (torch.bfloat16, torch.float32),
+           f32_reference=False, bf16_flip_bars=True, split_f32=True),
     Kernel("K4", False, filtered_lrelu_exact.exact_fwd_cuda, filtered_lrelu_exact.exact_plain,
            f32_tol=EXACT_F32_TOL, bf16_tol=EXACT_F32_TOL, f32_arithmetic=True,
            bf16_half_ulp=True),
@@ -215,13 +235,50 @@ class LayerCheck:
     over_in_reach: Optional[int] = None
     reach_share: Optional[float] = None
     elements: Optional[int] = None
-    # K3b in f32 (`act_flip_witness`): the witnessed flips and the U near 0.
-    flips: Optional[int] = None
-    near_zero: Optional[int] = None
+    # K2/K3b at their own act' decisions (`_against_tiles`): (i) the largest
+    # |U_kernel - U_tiles| as a share of its reach, the U elements, the U
+    # where the two take opposite signs and the U within reach of 0; (ii) dX
+    # against the contraction at the kernel's U (relative max-abs, its bar,
+    # bf16: the share of elements beyond one ulp of their own); (iii) the
+    # check-only launch's dX bit-equal to the production one (None: no
+    # launch, a CPU tensor).
+    u_reach_share: Optional[float] = None
+    u_elements: Optional[int] = None
+    u_signs: Optional[int] = None
+    u_near: Optional[int] = None
+    tiles_rel_err: Optional[float] = None
+    tiles_tol: Optional[float] = None
+    tiles_ulp_share: Optional[float] = None
+    dump_equal: Optional[bool] = None
 
     @property
     def over_share(self) -> float:
         return self.over / self.elements
+
+
+def describe(kernel: str, check: LayerCheck, extra: str = "") -> str:
+    """One check as a line: the error against the plain version and its bar
+    (a reading only, for K2/K3b at their own act' decisions), `extra`, then
+    the readings a gradient's bars hold."""
+    tol = "reading" if check.u_reach_share is not None else f"tol {check.tol:g}"
+    line = (f"{kernel} {check.name:<16} {check.dtype:<8} out {check.shape} rel_err "
+            f"{check.rel_err:.2e} ({tol}){extra}")
+    if check.over is not None:
+        line += (f" beyond act' flips {check.beyond_flips_rel_err:.2e} (tol "
+                 f"{check.flip_tol:g}), off by > {check.flip_tol:g} {check.over} of "
+                 f"{check.elements} ({check.over_share:.2e}, tol {K2_OVER_SHARE:g}), "
+                 f"{check.over_in_reach} of them within reach of a U near 0 (all elements: "
+                 f"{check.reach_share:.3%})")
+    if check.u_reach_share is not None:
+        line += (f"; at its own act' decisions: U off by {check.u_reach_share:.3f} of its "
+                 f"reach at most (tol 1), signs apart at {check.u_signs} of the "
+                 f"{check.u_near} U within reach of 0 ({check.u_elements} U), dX "
+                 f"{check.tiles_rel_err:.2e} (tol {check.tiles_tol:g})")
+        if check.tiles_ulp_share is not None:
+            line += (f", off by > 1 ulp {check.tiles_ulp_share:.2e} of the elements (tol "
+                     f"{K1_ULP_SHARE:g})")
+        line += f", check-only launch bit-equal: {check.dump_equal}"
+    return f"{line} {'ok' if check.ok else 'FAIL'}"
 
 
 @contextlib.contextmanager
@@ -263,8 +320,8 @@ def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
 
 def _against_plain(name: str, out: torch.Tensor, dtype: torch.dtype, plain, tol: float,
                    ulp_share_tol: Optional[float] = None, flip_bound=None,
-                   flip_tol: float = K2_RESIDUAL_TOL, witness=None,
-                   half_ulp: bool = False) -> LayerCheck:
+                   flip_tol: float = K2_RESIDUAL_TOL, half_ulp: bool = False,
+                   raw_bar: bool = True) -> LayerCheck:
     """`out` (the kernel's, launched once at full size) against `plain(s)`,
     the plain version (TF32 off) of the frames in slice `s`, computed
     REF_FRAMES frames at a time so that its memory stays bounded at training
@@ -272,19 +329,15 @@ def _against_plain(name: str, out: torch.Tensor, dtype: torch.dtype, plain, tol:
     also bars the share of elements more than one bf16 ulp of their own off.
     `flip_bound(s)`: the act' flip bound of slice s; then K2's bars beyond it
     apply too (`flip_tol`, K2_OVER_SHARE), with `out`'s own scale as the
-    scale of the elements counted off. `witness(s, err)`: (explained, flips,
-    near) of `act_flip_witness` on slice s's signed error; then `tol` bars
-    the error beyond the witnessed flips at every element, in place of the
-    error itself, and the elements more than `tol` of the scale off are
-    counted beside those a witnessed flip reaches. `half_ulp`: `tol` bars,
-    in place of the error itself, each element's error beyond half a bf16
-    ulp of its own reference (an f32 value rounded once to bf16 is within
-    that)."""
+    scale of the elements counted off. `half_ulp`: `tol` bars, in place of
+    the error itself, each element's error beyond half a bf16 ulp of its own
+    reference (an f32 value rounded once to bf16 is within that). Without
+    `raw_bar` the error itself is a reading only (K2/K3b, whose
+    `_against_tiles` bars stand in its place)."""
     err = scale = beyond = past_half_ulp = 0.0
     ref_frames, ref_rest = 0, None
-    n_ulp = n_over = n_over_reach = n_reach = n_flips = n_near = 0
-    flips_tol = tol if witness is not None else flip_tol
-    over_at = flips_tol * out.abs().max().float().item()
+    n_ulp = n_over = n_over_reach = n_reach = 0
+    over_at = flip_tol * out.abs().max().float().item()
     with tf32_off():
         for s in _slices(out.shape[0]):
             ref = plain(s).float()
@@ -298,24 +351,14 @@ def _against_plain(name: str, out: torch.Tensor, dtype: torch.dtype, plain, tol:
                     n_ulp += int((d > bf16_ulp(ref)).sum())
                 if half_ulp:
                     past_half_ulp = max(past_half_ulp, (d - bf16_ulp(ref) / 2).max().item())
-                if witness is not None:
-                    signed = out[s].double() - ref.double()
-                    explained, flips, near = witness(s, signed)
-                    beyond = max(beyond, (signed - explained).abs().max().item())
-                    reach = explained != 0
-                    n_flips, n_near = n_flips + flips, n_near + near
-                    del signed, explained
-                elif flip_bound is not None:
+                if flip_bound is not None:
                     e = flip_bound(s)
                     beyond = max(beyond, (d - e).max().item())
-                    reach = e > 0
-                    del e
-                if witness is not None or flip_bound is not None:
-                    over = d > over_at
+                    over, reach = d > over_at, e > 0
                     n_over += int(over.sum())
                     n_over_reach += int((over & reach).sum())
                     n_reach += int(reach.sum())
-                    del reach, over
+                    del e, over, reach
                 del d
             else:
                 err = math.inf
@@ -324,22 +367,77 @@ def _against_plain(name: str, out: torch.Tensor, dtype: torch.dtype, plain, tol:
     check = LayerCheck(name=name, shape=tuple(out.shape), dtype=str(dtype).split(".")[-1],
                        max_abs_err=err, rel_err=err / scale, tol=tol,
                        ok=tuple(out.shape) == (ref_frames,) + ref_rest and out.dtype == dtype
-                       and (witness is not None or half_ulp or err <= tol * scale))
+                       and (not raw_bar or half_ulp or err <= tol * scale))
     if half_ulp:
         check.beyond_half_ulp_rel_err = max(past_half_ulp, 0.0) / scale
         check.ok = check.ok and check.beyond_half_ulp_rel_err <= tol
     if ulp_share_tol is not None:
         check.ulp_share = n_ulp / out.numel()
         check.ok = check.ok and check.ulp_share <= ulp_share_tol
-    if witness is not None or flip_bound is not None:
-        check.flip_tol, check.beyond_flips_rel_err = flips_tol, beyond / scale
+    if flip_bound is not None:
+        check.flip_tol, check.beyond_flips_rel_err = flip_tol, beyond / scale
         check.over, check.over_in_reach, check.elements = n_over, n_over_reach, out.numel()
         check.reach_share = n_reach / out.numel()
-        check.ok = check.ok and check.beyond_flips_rel_err <= flips_tol
-        if witness is not None:
-            check.flips, check.near_zero = n_flips, n_near
-        else:
-            check.ok = check.ok and check.over_share <= K2_OVER_SHARE
+        check.ok = (check.ok and check.beyond_flips_rel_err <= flip_tol
+                    and check.over_share <= K2_OVER_SHARE)
+    return check
+
+
+def _against_tiles(check: LayerCheck, out: torch.Tensor, x: torch.Tensor, dy: torch.Tensor,
+                   launch_u: Callable, fu, fd, **kw) -> LayerCheck:
+    """Bars (i)-(iii) of K2/K3b (the comment at FLIP_NEAR) on `check`, the
+    kernel's production dX `out` at bias-added `x` along `dy`: `launch_u`
+    (check-only: dX, U per tile and the tile setup) on REF_FRAMES-frame
+    slices, the tile contraction on TILE_FRAMES-frame chunks of each, TF32
+    off. On a CPU tensor `launch_u` is the contraction itself and (iii) is
+    not read."""
+    bf16 = x.dtype == torch.bfloat16
+    gain, slope, clamp = kw["gain"], kw["slope"], kw["clamp"]
+    planes = x.shape[1]
+    worst_u = err = scale = 0.0
+    n_u = n_signs = n_near = n_ulp = 0
+    equal = None if x.device.type == "cpu" else True
+    with tf32_off():
+        for s in _slices(x.shape[0]):
+            dx_u, u, (plan, widths, taps) = launch_u(x[s], dy[s], fu, fd, **kw)
+            if equal is not None:
+                equal = equal and torch.equal(dx_u, out[s])
+            del dx_u
+            for c0 in range(0, x[s].shape[0], TILE_FRAMES):
+                c = slice(c0, c0 + TILE_FRAMES)
+                xc, dyc = x[s][c], dy[s][c]
+                xp = xc.reshape(-1, *xc.shape[2:])
+                uk = u[:, c0 * planes:c0 * planes + xp.shape[0]]
+                ref, own = _bands.tiled_bwd_plain(xp, dyc.reshape(-1, *dyc.shape[2:]), plan,
+                                                  widths, taps, gain, slope, clamp, u=uk,
+                                                  return_u=True)
+                reach = _bands.tiled_u_reach(xp, plan, widths, taps, FLIP_NEAR).expand_as(own)
+                du = (uk - own).abs()
+                share = torch.where(reach > 0, du / reach.clamp_min(1e-38),
+                                    torch.where(du > 0, math.inf, 0.0))
+                worst_u = max(worst_u, share.max().item())
+                n_u += own.numel()
+                n_signs += int(((uk >= 0) != (own >= 0)).sum())
+                n_near += int((own.abs() <= reach).sum())
+                del du, share, reach, own
+                ref = ref.float().reshape(xc.shape)
+                d = (out[s][c].float() - ref).abs()
+                err = max(err, d.max().item())
+                scale = max(scale, ref.abs().max().item())
+                if bf16:
+                    n_ulp += int((d > bf16_ulp(ref)).sum())
+                del d, ref
+            del u
+    scale = scale or 1.0
+    check.u_reach_share, check.u_elements, check.u_signs, check.u_near = (
+        worst_u, n_u, n_signs, n_near)
+    check.tiles_tol = K1_TOL if bf16 else TOLS[torch.float32]
+    check.tiles_rel_err, check.dump_equal = err / scale, equal
+    ok = worst_u <= 1.0 and check.tiles_rel_err <= check.tiles_tol and equal is not False
+    if bf16:
+        check.tiles_ulp_share = n_ulp / out.numel()
+        ok = ok and check.tiles_ulp_share <= K1_ULP_SHARE
+    check.ok = check.ok and ok
     return check
 
 
@@ -440,9 +538,10 @@ def check_layer(layer: SynthesisLayer, name: str, frames: int, dtype: torch.dtyp
     holds the output to the f32 composed op on the input cast to f32, at the
     bf16 bar, the cost of the stage rounding. In bf16, K1 and K3a are also
     held to K1_ULP_SHARE, K2 and K3b to K2's bars beyond act' flips, K4 and
-    K5 to their bar beyond half an ulp; K3b is held in f32 to TOLS[f32]
-    beyond witnessed act' flips. A CPU tensor runs the plain version against
-    itself."""
+    K5 to their bar beyond half an ulp. K2 and K3b in the types of
+    `tile_dtypes` are held at their own act' decisions (`_against_tiles`)
+    in place of a bar on the raw error. A CPU tensor runs the plain version
+    against itself."""
     k = KERNELS[kernel]
     x, fu, fd, kw = _layer_inputs(layer, frames, dtype, device, generator)
     args = (x,)
@@ -458,14 +557,15 @@ def check_layer(layer: SynthesisLayer, name: str, frames: int, dtype: torch.dtyp
     if bf16 and k.bf16_flip_bars:
         bars["flip_bound"] = lambda s: filtered_lrelu_bands.act_flip_bound(
             *(a[s] for a in args), fu, fd, **kw, near=FLIP_NEAR)
-    if not bf16 and k.f32_flip_witness:
-        bars["witness"] = lambda s, err: filtered_lrelu_bands.act_flip_witness(
-            *(a[s] for a in args), err, fu, fd, **kw)
+    own_decisions = dtype in k.tile_dtypes
     with torch.no_grad():
         out = k.run(*args, fu, fd, **kw)
         check = _against_plain(name, out, dtype, lambda s: k.plain(
             *(ref(a[s]) for a in args), fu, fd, **kw), k.tol(dtype),
-            k.bf16_ulp_share if bf16 else None, half_ulp=bf16 and k.bf16_half_ulp, **bars)
+            k.bf16_ulp_share if bf16 else None, half_ulp=bf16 and k.bf16_half_ulp,
+            raw_bar=not own_decisions, **bars)
+        if own_decisions:
+            _against_tiles(check, out, *args, k.launch_u, fu, fd, **kw)
         if vs_composed:
             composed = _against_plain(name, out, dtype, lambda s: _composed(
                 x[s].float(), fu, fd, **kw), TOLS[torch.bfloat16])

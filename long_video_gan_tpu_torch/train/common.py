@@ -14,6 +14,7 @@ from typing import Iterable, Optional, Sequence
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.utils.checkpoint
 
 from ..parallel.mesh import global_draw
 
@@ -50,6 +51,34 @@ class Adam:
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
         torch._foreach_addcdiv_(self.params, grads, denom, value=-float(lrate))
+
+
+def micro_loss(remat: bool, fn, generator: Optional[torch.Generator], *args):
+    """`fn(generator, *args)`, a micro-batch loss; with `remat` under
+    `torch.utils.checkpoint` (non-reentrant), the JAX trainers'
+    `jax.checkpoint(micro_loss)`: its activations are recomputed in the
+    backward. The recompute draws what the first run drew: `generator` is
+    rewound to the state the run started from, and put back after, so the
+    gradient is that of the drawn augmentations and the generator ends where
+    it does without `remat` (`torch.utils.checkpoint` restores only the
+    global generators)."""
+    if not remat:
+        return fn(generator, *args)
+    start = None if generator is None else generator.get_state()
+    calls = []
+
+    def run(*inputs):
+        if generator is None or not calls:
+            calls.append(None)
+            return fn(generator, *inputs)
+        resume = generator.get_state()
+        generator.set_state(start)
+        try:
+            return fn(generator, *inputs)
+        finally:
+            generator.set_state(resume)
+
+    return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)
 
 
 def warmup_lrate(base: float, step: int, warmup_steps: int) -> float:

@@ -12,7 +12,8 @@ Beside what the JAX trainer does, written out for PyTorch:
   * the D phase generates each micro-batch's fakes under `torch.no_grad()`
     with `magnitude_ema_beta=G_magnitude_ema_beta`, so G's magnitude EMAs
     move in place once per micro-batch, in the JAX scan's order, and never
-    inside a graph that autograd still needs;
+    inside a graph that autograd still needs nor in a loss that `remat`
+    recomputes;
   * a `torch.Generator` takes the place of each JAX key: the noise, the
     temporal crop and the augmentations draw from it;
   * with several processes (`parallel`), each holds its share of the batch
@@ -39,8 +40,8 @@ from ..parallel import mesh
 from ..parallel.multihost import local_batch_size
 from ..utils.misc import assert_shape
 from . import stats as stats_lib
-from .common import (Adam, collect_grads, ema_beta_schedule, lerp_trees, random_temporal_crop,
-                     scrub_grads, temporal_scale_augment, warmup_lrate)
+from .common import (Adam, collect_grads, ema_beta_schedule, lerp_trees, micro_loss,
+                     random_temporal_crop, scrub_grads, temporal_scale_augment, warmup_lrate)
 
 
 @dataclass
@@ -67,6 +68,9 @@ class LowResVideoGAN:
     D_grad_accum: int = 1
     D_kwargs: dict = field(default_factory=dict)
     r1_gamma: Optional[float] = 10.0
+    # Recompute each G and D micro-batch loss in the backward (the JAX
+    # `jax.checkpoint(micro_loss)`; `train.common.micro_loss`).
+    remat: bool = False
 
     temp_scale_augment: float = 0.0
     diffaug_policy: str = "color,translation,cutout"
@@ -191,7 +195,7 @@ class LowResVideoGAN:
         stats = {k: zero for k in ("loss/G_score", "loss/G_sign", "loss/G_loss")}
         try:
             for _ in range(accum):
-                loss, logits = self.G_micro_loss(generator, micro)
+                loss, logits = micro_loss(self.remat, self.G_micro_loss, generator, micro)
                 loss.backward()
                 stats = {
                     "loss/G_score": stats["loss/G_score"] + stats_lib.moments(logits),
@@ -217,7 +221,7 @@ class LowResVideoGAN:
             # Each micro-batch's fakes, moving G's magnitude EMAs in place.
             with torch.no_grad():
                 fake = self.generate(generator, real.shape[0], self.G_magnitude_ema_beta)
-            loss, flg, rlg = self.D_micro_loss(generator, fake, real)
+            loss, flg, rlg = micro_loss(self.remat, self.D_micro_loss, generator, fake, real)
             loss.backward()
             stats = {
                 "loss/D_score_fake": stats["loss/D_score_fake"] + stats_lib.moments(flg),

@@ -13,7 +13,7 @@ Beside what the JAX trainer does, written out for PyTorch:
   * the D phase generates each micro-batch's fake hr frames under
     `torch.no_grad()`, updating G's magnitude EMAs and w_avg in place (the
     JAX `update_ema=True` generator pass), so no in-place update lands in a
-    graph that autograd still needs;
+    graph that autograd still needs, nor in a loss that `remat` recomputes;
   * a `torch.Generator` takes the place of each JAX key. z, the ADA and
     in_augment draws and the lr-conditioning dropout are drawn from it in the
     JAX package's order;
@@ -42,7 +42,8 @@ from ..parallel import mesh
 from ..parallel.multihost import local_batch_size
 from ..utils.misc import assert_shape
 from . import stats as stats_lib
-from .common import Adam, collect_grads, ema_beta_schedule, lerp_trees, scrub_grads, warmup_lrate
+from .common import (Adam, collect_grads, ema_beta_schedule, lerp_trees, micro_loss, scrub_grads,
+                     warmup_lrate)
 
 
 @dataclass
@@ -73,6 +74,9 @@ class SuperResVideoGAN:
 
     r1_gamma: Optional[float] = 1.0
     lr_cond_prob: float = 0.1
+    # Recompute each G and D micro-batch loss in the backward (the JAX
+    # `jax.checkpoint(micro_loss)`; `train.common.micro_loss`).
+    remat: bool = False
 
     augment_p_init: float = 0.0
     augment_p_max: float = 0.5
@@ -232,7 +236,7 @@ class SuperResVideoGAN:
         zero = torch.zeros(3, device=self.device)
         stats = {k: zero for k in ("loss/G_score", "loss/G_sign", "loss/G_loss")}
         for lr_chunk in self._chunks(lr_video, accum):
-            loss, logits = self.G_micro_loss(generator, lr_chunk)
+            loss, logits = micro_loss(self.remat, self.G_micro_loss, generator, lr_chunk)
             loss.backward()
             stats = {
                 "loss/G_score": stats["loss/G_score"] + stats_lib.moments(logits),
@@ -266,7 +270,7 @@ class SuperResVideoGAN:
             with torch.no_grad():
                 z = self._draw_z(generator, fl_ctx.shape[0])
                 fh = self.G(fl_ctx, z=z, magnitude_ema_beta=self.G_magnitude_ema_beta)
-            loss, flg, rlg = self.D_micro_loss(generator, fl, fh, rl, rh)
+            loss, flg, rlg = micro_loss(self.remat, self.D_micro_loss, generator, fl, fh, rl, rh)
             loss.backward()
             stats = {
                 "loss/D_score_fake": stats["loss/D_score_fake"] + stats_lib.moments(flg),

@@ -29,8 +29,11 @@ and only rank 0 writes.
     torchrun --nproc_per_node=8 -m long_video_gan_tpu_torch.train_lres \
         --dataset datasets/horseback --batch 64 --grad-accum 1 --seed 1
 
-Not ported: the JAX CLI's XLA memory options (`--remat`, `--block-remat`,
-`--unroll-accum`) and `--wandb`.
+`--remat` recomputes each G and D micro-batch loss in the backward,
+`--block-remat` each of G's residual blocks (`torch.utils.checkpoint`, the
+JAX flags' counterparts); both trade time for memory. Not ported:
+`--unroll-accum`, the unroll factor of the JAX accumulation `scan` (the
+port accumulates in a Python loop), and `--wandb`.
 """
 
 from __future__ import annotations
@@ -51,12 +54,15 @@ from .parallel.multihost import (is_main_process, local_device,
 from .train.common import step_generator
 from .train.gan_lres import LowResVideoGAN
 from .train.stats import Collector, write_tick
-from .utils.misc import cli_device, set_matmul_precision
+from .utils.misc import add_remat_options, cli_device, set_matmul_precision
 
 
 def build_config(dataset_dir: str, total_batch: int, grad_accum: int, r1_gamma: float,
-                 preset: str, fp16_layers: int = 0, d_fp16_res: int = 0) -> dict:
-    """The `full` and `tiny` presets of the repository's `train_lres.py`."""
+                 preset: str, fp16_layers: int = 0, d_fp16_res: int = 0, remat: bool = False,
+                 block_remat: bool = False) -> dict:
+    """The `full` and `tiny` presets of the repository's `train_lres.py`,
+    with its `--remat` and `--block-remat` at `gan_kwargs.remat` and
+    `gan_kwargs.G_kwargs.block_remat`."""
     c = dict(
         dataset_dir=dataset_dir,
         seq_length=128, height=36, width=64, x_flip=True,
@@ -68,8 +74,9 @@ def build_config(dataset_dir: str, total_batch: int, grad_accum: int, r1_gamma: 
     gan = dict(
         D_lrate=0.002, D_beta2=0.99, r1_gamma=r1_gamma,
         G_random_temp_translate=True, temp_scale_augment=1.0,
-        G_grad_accum=grad_accum, D_grad_accum=grad_accum,
-        G_kwargs=dict(num_fp16_layers=fp16_layers, temporal_padding=8, temporal_emb_dim=1024),
+        G_grad_accum=grad_accum, D_grad_accum=grad_accum, remat=remat,
+        G_kwargs=dict(num_fp16_layers=fp16_layers, temporal_padding=8, temporal_emb_dim=1024,
+                      block_remat=block_remat),
         D_kwargs=dict(num_fp16_res=d_fp16_res),
     )
     if c["r1_interval"] > 0:
@@ -242,6 +249,7 @@ def main(argv: Optional[list[str]] = None) -> str:
     parser.add_argument("--matmul-precision", choices=["default", "high", "highest"],
                         default="default",
                         help="'highest' turns TF32 off: the reference's f32 convolutions")
+    add_remat_options(parser)
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu; without a CUDA device, pass cpu")
     args = parser.parse_args(argv)
@@ -259,7 +267,8 @@ def main(argv: Optional[list[str]] = None) -> str:
     from .utils.video import get_next_run_dir
 
     c = build_config(args.dataset_dir, args.total_batch, args.grad_accum, args.r1_gamma,
-                     args.preset, args.fp16_layers, args.d_fp16_res)
+                     args.preset, args.fp16_layers, args.d_fp16_res, args.remat,
+                     args.block_remat)
     if args.total_steps is not None:
         c["total_steps"] = args.total_steps
     c.update(metrics=args.metrics, metric_detector=args.metric_detector,

@@ -34,7 +34,10 @@ and only rank 0 writes.
 `--matmul-precision highest` turns TF32 off in cuDNN convolutions and
 matmuls, as its help says ("the reference's TF32-off f32"); the JAX CLI
 records the flag in `config.json` without applying it, and the port applies
-it as `train_lres` does. wandb is not ported.
+it as `train_lres` does. `--remat` recomputes each G and D micro-batch loss
+in the backward, `--block-remat` each of G's synthesis layers
+(`torch.utils.checkpoint`, the JAX flags' counterparts); both trade time for
+memory. wandb is not ported.
 """
 
 from __future__ import annotations
@@ -55,12 +58,14 @@ from .parallel.multihost import (is_main_process, local_device,
 from .train.common import step_generator
 from .train.gan_sres import SuperResVideoGAN
 from .train.stats import Collector, write_tick
-from .utils.misc import cli_device, set_matmul_precision
+from .utils.misc import add_remat_options, cli_device, set_matmul_precision
 
 
 def build_config(dataset_dir: str, total_batch: int, grad_accum: int, r1_gamma: float,
-                 preset: str) -> dict:
-    """The `full` and `tiny` presets of the repository's `train_sres.py`."""
+                 preset: str, remat: bool = False, block_remat: bool = False) -> dict:
+    """The `full` and `tiny` presets of the repository's `train_sres.py`,
+    with its `--remat` and `--block-remat` at `gan_kwargs.remat` and
+    `gan_kwargs.G_kwargs.block_remat`."""
     c = dict(
         dataset_dir=dataset_dir,
         seq_length=4, temporal_context=4,
@@ -74,8 +79,9 @@ def build_config(dataset_dir: str, total_batch: int, grad_accum: int, r1_gamma: 
     gan = dict(
         D_lrate=0.003, D_beta2=0.99, lr_cond_prob=0.1, r1_gamma=r1_gamma,
         in_augment_p=0.5, in_augment_strength=8,
-        G_grad_accum=grad_accum, D_grad_accum=grad_accum,
-        G_kwargs=dict(num_fp16_res=4, fourfeats=False, resample_impl="auto"),
+        G_grad_accum=grad_accum, D_grad_accum=grad_accum, remat=remat,
+        G_kwargs=dict(num_fp16_res=4, fourfeats=False, resample_impl="auto",
+                      block_remat=block_remat),
         D_kwargs=dict(num_fp16_res=4),
         augment_kwargs=dict(xflip=1, rotate90=1, xint=1, scale=1, rotate=1, aniso=1, xfrac=1,
                             brightness=1, contrast=1, lumaflip=1, hue=1, saturation=1),
@@ -271,6 +277,7 @@ def main(argv: Optional[list[str]] = None) -> str:
     parser.add_argument("--matmul-precision", choices=["default", "high", "highest"],
                         default="default",
                         help="'highest' turns TF32 off: the reference's f32 convolutions")
+    add_remat_options(parser)
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu; without a CUDA device, pass cpu")
     args = parser.parse_args(argv)
@@ -288,7 +295,7 @@ def main(argv: Optional[list[str]] = None) -> str:
     from .utils.video import get_next_run_dir
 
     c = build_config(args.dataset_dir, args.total_batch, args.grad_accum, args.r1_gamma,
-                     args.preset)
+                     args.preset, args.remat, args.block_remat)
     if args.total_steps is not None:
         c["total_steps"] = args.total_steps
     c.update(metrics=args.metrics, metric_detector=args.metric_detector,

@@ -1,7 +1,9 @@
-"""Small shared helpers (shape contracts, the CLIs' device and matmul precision)."""
+"""Small shared helpers (shape contracts, the CLIs' device, matmul precision
+and recompute options)."""
 
 from __future__ import annotations
 
+import argparse
 from typing import Optional, Sequence
 
 import torch
@@ -39,3 +41,14 @@ def set_matmul_precision(precision: str) -> None:
         torch.set_float32_matmul_precision("highest")
     elif precision == "high":
         torch.set_float32_matmul_precision("high")
+
+
+def add_remat_options(parser: argparse.ArgumentParser) -> None:
+    """The training CLIs' `--remat` and `--block-remat` (the JAX CLIs' flags,
+    the same names and defaults)."""
+    parser.add_argument("--remat", action="store_true",
+                        help="recompute each G and D micro-batch loss in the backward "
+                             "(torch.utils.checkpoint): less memory, more time")
+    parser.add_argument("--block-remat", action="store_true",
+                        help="recompute each of G's blocks in the backward "
+                             "(torch.utils.checkpoint): G's activations one block at a time")

@@ -9,8 +9,13 @@ card, one JSON line per configuration (bench_train's, or {"oom": true}
 where it ran out of device memory), and then the fastest configuration
 that fitted of each kind.
 Exits 1 if a configuration failed otherwise (a non-finite loss, an error).
+`--remat` / `--block-remat` run every configuration with the trainers'
+recompute options; `--lres-accums`, `--lres-ladders` (fp16 layers : D fp16
+blocks) and `--sres-accums` narrow the grid.
 
     python3 scripts/torch_bench_train_sweep.py
+    python3 scripts/torch_bench_train_sweep.py --block-remat --lres-accums 1,2,4 \
+        --lres-ladders 0:0 --sres-accums 1,2
 """
 
 from __future__ import annotations
@@ -56,8 +61,22 @@ def run(fn, **config) -> dict:
         torch.cuda.empty_cache()
 
 
+def _ints(text: str) -> tuple:
+    return tuple(int(v) for v in text.split(","))
+
+
 def main(argv=None) -> int:
-    argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args(argv)
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--remat", action="store_true")
+    ap.add_argument("--block-remat", action="store_true")
+    ap.add_argument("--lres-accums", type=_ints, default=LRES_ACCUMS)
+    ap.add_argument("--lres-ladders", type=lambda t: [_ints(v.replace(":", ",")) for v in
+                                                      t.split()],
+                    default=list(itertools.product(LRES_FP16_LAYERS, LRES_D_FP16_RES)),
+                    help='space-separated "fp16_layers:d_fp16_res" pairs')
+    ap.add_argument("--sres-accums", type=_ints, default=SRES_ACCUMS)
+    args = ap.parse_args(argv)
+    remat = dict(remat=args.remat, block_remat=args.block_remat)
     if not torch.cuda.is_available():
         print("torch_bench_train_sweep: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
@@ -65,13 +84,12 @@ def main(argv=None) -> int:
     print(gpu_name_and_power_limit())
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     records = {"lres": [], "sres": []}
-    for accum, layers, d_res in itertools.product(LRES_ACCUMS, LRES_FP16_LAYERS,
-                                                  LRES_D_FP16_RES):
+    for accum, (layers, d_res) in itertools.product(args.lres_accums, args.lres_ladders):
         records["lres"].append(run(bench_train.bench_lres, accum=accum, steps=STEPS,
-                                   fp16_layers=layers, d_fp16_res=d_res))
+                                   fp16_layers=layers, d_fp16_res=d_res, **remat))
         print(json.dumps(records["lres"][-1]), flush=True)
-    for accum in SRES_ACCUMS:
-        records["sres"].append(run(bench_train.bench_sres, accum=accum, steps=STEPS))
+    for accum in args.sres_accums:
+        records["sres"].append(run(bench_train.bench_sres, accum=accum, steps=STEPS, **remat))
         print(json.dumps(records["sres"][-1]), flush=True)
     for kind, recs in records.items():
         fitted = [r for r in recs if "value" in r]

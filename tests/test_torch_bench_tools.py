@@ -31,7 +31,9 @@ import torch_bench_layers  # noqa: E402
 import torch_bench_prefetch  # noqa: E402
 import torch_profile_train  # noqa: E402
 
-XLA_KNOBS = {"remat", "block_remat", "accum_unroll"}
+# The JAX record's key the port has no counterpart of: the unroll factor of
+# its accumulation scan (the port's `remat` and `block_remat` are in both).
+XLA_KNOBS = {"accum_unroll"}
 
 
 def _jax_bench_train():
@@ -95,7 +97,7 @@ def _recorded_port_bench(kind: str) -> tuple[list, dict]:
 def test_cycle_and_json_match_bench_train(kind, monkeypatch):
     """Two warm-up cycles with R1 (sres: and ADA), then R1 at steps 0 and
     16 with gain 16, sres ADA every 4 steps with gain 4, in the JAX order;
-    the same JSON keys less the XLA knobs, plus the card."""
+    the same JSON keys less the scan's unroll factor, plus the card."""
     import long_video_gan_tpu.train.gan_lres as jax_gan_lres
     import long_video_gan_tpu.train.gan_sres as jax_gan_sres
 
@@ -149,7 +151,8 @@ def test_bench_train_cli_on_the_cpu_and_without_a_card(capsys, monkeypatch,
     # The CLI runs the full presets; here it runs the tiny one.
     full = bench_train.make_sres_bench
     monkeypatch.setattr(bench_train, "make_sres_bench",
-                        lambda accum, preset="full", device="cuda": full(accum, "tiny", device))
+                        lambda accum, preset="full", device="cuda", *options:
+                        full(accum, "tiny", device, *options))
     out = bench_train.main(["--config", "sres", "--sres-accum", "2", "--steps", "1",
                             "--device", "cpu"])
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])

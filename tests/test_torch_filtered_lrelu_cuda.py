@@ -141,15 +141,19 @@ def test_new_entries_on_cpu_take_plain(entry, dtype):
 @pytest.mark.parametrize("kernel", list(selftest.KERNELS))
 def test_selftest_checks_every_kernel_on_cpu(kernel):
     """selftest's check of each kernel runs its plain version against itself
-    on a CPU tensor: an exact agreement, at the kernel's own bar (K3b's f32
-    bar holds beyond witnessed act' flips, of which there are none here)."""
+    on a CPU tensor: an exact agreement, at the kernel's own bar (K3b in f32
+    at its own act' decisions, where the tile contraction stands in for its
+    check-only launch: every U within reach, dX within TOLS[f32])."""
     layer = SynthesisLayer(**LAYER_KW, resample_impl="auto")
     check = selftest.check_layer(layer, "small", 3, torch.float32, torch.device("cpu"),
                                  torch.Generator().manual_seed(4), kernel=kernel)
     assert check.ok and check.max_abs_err == 0.0, check
     assert check.tol == {"K3a": 1e-6, "K4": 1e-6, "K5": 1e-6}.get(kernel, 1e-4)
     if kernel == "K3b":
-        assert check.flips == 0 and check.beyond_flips_rel_err == 0.0, check
+        assert check.u_reach_share == 0.0 and check.u_signs == 0, check
+        assert check.tiles_rel_err <= 1e-5 and check.dump_equal is None, check
+    else:
+        assert check.u_reach_share is None, check
     # K4 and K5 in bf16: 1e-6 of the scale beyond half an ulp of each element.
     bf16_tol = {"K1": 2 ** -7, "K3a": 2 ** -7, "K4": 1e-6, "K5": 1e-6}.get(kernel, 0.03)
     assert selftest.KERNELS[kernel].tol(torch.bfloat16) == bf16_tol
@@ -349,64 +353,33 @@ def test_act_flip_bound_covers_flips(idx, plan_layers):
     assert check.over_in_reach == check.over > 0, check
 
 
-def _bwd_flipped_at(x, dy, fu, fd, up, down, padding, gain, slope, clamp, site):
-    """`banded_bwd_plain` in f32 with act' taken on the other side of its jump
-    at the single U element `site` (plane, row, column)."""
-    (au, bu, ad, bd), _ = filtered_lrelu_bands._plain_setup(x, fu, fd, up, down, padding)
-    n, c, h, w = x.shape
-    u = (au @ x.reshape(n * c, h, w)) @ bu.T
-    u[site] = -1.0 if u[site] >= 0 else 1.0
-    g = filtered_lrelu_bands.act_grad(u, gain, slope, clamp)
-    dz = (ad.T @ dy.reshape(n * c, *dy.shape[2:])) @ bd
-    return (au.T @ ((dz * g) @ bu)).reshape(n, c, h, w)
-
-
-@pytest.mark.parametrize("variant", ["flip", "wrong_sign", "far_from_zero"])
-@pytest.mark.parametrize("idx", [0, 3])
-def test_act_flip_witness(idx, variant, plan_layers):
-    """K3b's f32 bar beyond witnessed flips (L0: up 2; L3: up 4 with a crop),
-    on 2 planes in f32. With U set within f32 rounding of 0 at the element of
-    the largest dZ, dX with act' flipped there is more than TOLS[f32] off,
-    and the witness explains it as one flip. The same move with the wrong
-    sign, or a flip at a U far from 0, is not explained and fails the bar."""
-    name, layer = plan_layers[idx]
-    g = torch.Generator().manual_seed(60 + idx)
-    x, fu, fd, kw = selftest._layer_inputs(layer, 1, torch.float32, torch.device("cpu"), g)
-    x = x[:, :2].contiguous()
-    out_hw = output_size(x.shape[2], x.shape[3], fu, fd, kw["up"], kw["down"], kw["padding"])
-    dy = torch.randn((1, 2) + out_hw, generator=g)
-    (au, bu, ad, bd), _ = filtered_lrelu_bands._plain_setup(x, fu, fd, kw["up"], kw["down"],
-                                                            kw["padding"])
-    dz = (ad.T @ dy[0] @ bd)[0]
-    i, j = divmod(int(dz.abs().argmax()), dz.shape[1])
-    if variant == "far_from_zero":
-        u = au.double() @ x[0, 0].double() @ bu.double().T
-        i, j = divmod(int((u.abs() * dz.abs()).argmax()), u.shape[1])
-    else:   # one pixel of x takes U[i, j] to 0
-        r, col = int(au[i].abs().argmax()), int(bu[j].abs().argmax())
-        u = au[i].double() @ x[0, 0].double() @ bu[j].double()
-        x[0, 0, r, col] -= float(u / (au[i, r].double() * bu[j, col].double()))
-
-    def plain(s):
-        return filtered_lrelu_bands.banded_bwd_plain(x[s], dy[s], fu, fd, **kw)
-
-    def witness(s, err):
-        return filtered_lrelu_bands.act_flip_witness(x[s], dy[s], err, fu, fd, **kw)
-
-    want = plain(slice(None))
-    out = _bwd_flipped_at(x, dy, fu, fd, **kw, site=(0, i, j))
-    if variant == "wrong_sign":
-        out = 2 * want - out
-    tol = selftest.KERNELS["K3b"].tol(torch.float32)
-    assert tol == selftest.TOLS[torch.float32]
-    check = selftest._against_plain(name, out, torch.float32, plain, tol, witness=witness)
-    assert check.rel_err > 10 * tol and check.over > 0, check
-    if variant == "flip":
-        assert check.ok and check.flips == 1 <= check.near_zero, check
-        assert check.beyond_flips_rel_err < 1e-6 and check.over_in_reach == check.over, check
-    else:
-        assert not check.ok and check.flips == 0, check
-        assert check.beyond_flips_rel_err > 10 * tol, check
+@pytest.mark.parametrize("kernel", ["K2", "K3b"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_check_only_backward_on_cpu_is_the_contraction(kernel, dtype, plan_layers):
+    """K2's and K3b's check-only launch (dX, U per tile, the tile setup) on
+    a CPU tensor is the tile contraction at its own U at the kernel's tile,
+    counts no launch, and lays U out [tiles, planes, rp, rp]; its dX agrees
+    with the plain version's."""
+    name, layer = plan_layers[4]
+    x, dy, fu, fd, kw = _plan_case(layer, 4)
+    x, dy = x.to(dtype), dy.to(dtype)
+    k = selftest.KERNELS[kernel]
+    _reset_counts()
+    dx, u, (plan, widths, taps) = k.launch_u(x, dy, fu, fd, **kw)
+    assert _counts() == (0,) * 6 and dx.dtype == dtype and u.dtype == torch.float32
+    tile = filtered_lrelu_fused.tile_for(True, dtype, 2) if kernel == "K3b" else 32
+    assert plan == filtered_lrelu_cuda.bwd_tile_setup(x, fu, fd, kw["up"], kw["down"],
+                                                     kw["padding"], tile)[0]
+    planes = x.shape[0] * x.shape[1]
+    assert u.shape == (math.prod(filtered_lrelu_bands.tile_counts(*x.shape[2:], tile)), planes,
+                       plan.rp, plan.rp)
+    flat = x.reshape(planes, *x.shape[2:]), dy.reshape(planes, *dy.shape[2:])
+    want = filtered_lrelu_bands.tiled_bwd_plain(*flat, plan, widths, taps, kw["gain"],
+                                                kw["slope"], kw["clamp"], u=u)
+    assert torch.equal(dx, want.reshape(x.shape))
+    plain = filtered_lrelu_bands.banded_bwd_plain(x, dy, fu, fd, **kw).float()
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -8
+    assert (dx.float() - plain).abs().max() <= tol * plain.abs().max()
 
 
 def test_kernel_entry_rejects_cpu_tensor():
