@@ -12,7 +12,10 @@ training size; K4 and K5 at generation size; K2 and K3b also at their own
 act' decisions, through their check-only builds that write U, on three
 seeded draws), with the
 tensor-core kernels' executed rate and per-layer tables of time, bound and
-share, then drives each path through the entry points a user calls:
+share, holds the native JPEG decoder (built with g++ on the card's host,
+against the system's libjpeg or Pillow's libjpeg-turbo) to PIL on every
+frame of the metrics' synthetic datasets and fails if the host decodes with
+PIL, then drives each path through the entry points a user calls:
 
 - full-width two-stage generation through
   `long_video_gan_tpu_torch.generate.generate_video`, with the kernel policy
@@ -83,7 +86,9 @@ import sys
 import tempfile
 import time
 import warnings
+import zipfile
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 FRAMES = 64            # output frames of the generation phases
 SEGMENT = 16           # sres window (bench.py configuration)
@@ -109,6 +114,8 @@ METRIC_SUBSAMPLE_CLIPS = 4   # fvd2048_128f_subsample8f: generated clips, one ge
 METRIC_SUBSAMPLE_FRAMES = METRIC_SUBSAMPLE_CLIPS * METRIC_LONG_FRAMES   # in one pass (K1 at 512)
 METRIC_UCF_ITEMS = 16  # isv2048_ucf: generated clips
 DETECTOR_TOL = 1e-3    # card (TF32 off) vs CPU features, of their max |.|
+JPEG_TOL = 1           # levels, native vs PIL where they link two libjpegs (the JAX
+                       # package's tests/test_native_jpeg.py bar); 0 where they share one
 SELF_FD_TOL = 1e-4     # |Fréchet distance of a stats set with itself|, of its covariance's trace
 DP_STEPS = (0, 1)      # data-parallel sres steps: 0 runs R1 and ADA, 1 neither
 DP_RANKS = 2           # processes on the one card over gloo
@@ -227,6 +234,12 @@ def main(argv=None) -> int:
     print(f"built {', '.join(sorted(set(sources.values())))} and the f32 K1/K2 sources in "
           f"{time.perf_counter() - t0:.2f} s")
     tensor_core_report()
+
+    # 2b. The native JPEG decoder on the card's host (built there with g++),
+    # on the frames of the synthetic datasets the metrics phase reads.
+    data_dir = tempfile.TemporaryDirectory()
+    make_metric_datasets(data_dir.name)
+    jpeg_phase(data_dir.name)
 
     # 3-4. Every kernel against its plain version at each layer geometry
     # that launches it, at the frame counts its paths give it: a generation
@@ -423,8 +436,9 @@ def main(argv=None) -> int:
 
     # 11. The quality metrics on the two-stage pipeline: K1 in every sres
     # call, at the shapes checked above.
-    launches["metrics"], metric_numbers = metrics_phase(device, checked)
+    launches["metrics"], metric_numbers = metrics_phase(device, checked, data_dir.name)
     end_to_end.update(metric_numbers)
+    data_dir.cleanup()
 
     # 12. Data-parallel sres training in a world-1 NCCL group: K1/K2 on the
     # distributed path, bit-equal to the plain path.
@@ -576,8 +590,6 @@ def tensor_core_report() -> None:
     library) and HMMA instruction counts (cuobjdump -sass of the library), for
     each instantiation (K3a-K5: bf16 and f32 maps); raises unless each uses
     the tensor cores and spills nothing."""
-    from pathlib import Path
-
     from long_video_gan_tpu_torch.utils.nvcc import build_library, find_nvcc
 
     cuobjdump = str(Path(find_nvcc()).parent / "cuobjdump")
@@ -1184,11 +1196,93 @@ class _TimedDetector:
         return out
 
 
-def metrics_phase(device, checked: dict) -> tuple[dict, dict]:
+def make_metric_datasets(root: str) -> None:
+    """The metrics phase's synthetic datasets, made with the port's tool:
+    `<root>/data` (METRIC_ITEMS videos of 16 frames at 36x64 and 144x256)
+    and `<root>/long` (METRIC_LONG of METRIC_LONG_FRAMES at 144x256)."""
+    from long_video_gan_tpu_torch.data.tools.synthetic import make_synthetic_dataset
+
+    lr = (SRES_KWARGS["lr_height"], SRES_KWARGS["lr_width"])
+    hr = (SRES_KWARGS["hr_height"], SRES_KWARGS["hr_width"])
+    t0 = time.perf_counter()
+    make_synthetic_dataset(f"{root}/data", [lr, hr], num_videos=METRIC_ITEMS,
+                           frames_per_video=16, num_partitions=4, seed=SEED)
+    make_synthetic_dataset(f"{root}/long", [hr], num_videos=METRIC_LONG,
+                           frames_per_video=METRIC_LONG_FRAMES, num_partitions=1, seed=SEED + 1)
+    print(f"synthetic datasets: {METRIC_ITEMS} videos of 16 frames at {lr} and {hr}, "
+          f"{METRIC_LONG} of {METRIC_LONG_FRAMES} at {hr}, in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def mapped_libjpeg() -> set:
+    """Real paths of the libjpeg libraries mapped into this process (the
+    system's `libjpeg.so.62*` or a wheel's `libjpeg-<hash>.so.62*`)."""
+    with open("/proc/self/maps") as f:
+        paths = {fields[5] for fields in (line.split(None, 5) for line in f) if len(fields) == 6}
+    return {os.path.realpath(p.strip()) for p in paths
+            if re.match(r"libjpeg(-[0-9a-f]+)?\.so", os.path.basename(p.strip()))}
+
+
+def jpeg_phase(root: str) -> None:
+    """Fails unless the native JPEG decoder loaded on the card's host (PIL
+    is the fallback of hosts with no libjpeg at all). Then decodes every clip
+    of the synthetic datasets under `root`, one clip a call as the dataset
+    reads it, through the native decoder and through PIL, and holds them
+    bit-equal where both run the same libjpeg file (one libjpeg mapped into
+    the process), else within JPEG_TOL levels. Prints the largest
+    difference, the share of elements that differ and each decoder's
+    frames/s on the host clock."""
+    import numpy as np
+
+    from long_video_gan_tpu_torch.data import jpeg
+
+    phase("JPEG decoder: native against PIL on the synthetic datasets' frames")
+    decoder = jpeg.decoder_in_use()
+    print(f"JPEG decoder: {decoder[:600]}")
+    if not decoder.startswith("native"):
+        raise RuntimeError("the card decodes JPEG with PIL: the native decoder did not load")
+    from long_video_gan_tpu_torch.data import jpeg_native
+
+    clips = []
+    for shard in sorted(Path(root).glob("*/*/*.zip")):
+        with zipfile.ZipFile(shard) as zf:
+            index = json.loads(zf.read("frame_paths.json"))
+            clips += [[zf.read(f"{clip}/{name}") for name in names]
+                      for clip, names in sorted(index.items())]
+    seconds = {"native": 0.0, "PIL": 0.0}
+    max_diff, differ, elements, frames = 0, 0, 0, 0
+    for blobs in clips:
+        t0 = time.perf_counter()
+        got = jpeg.decode_jpeg_batch(blobs)
+        t1 = time.perf_counter()
+        want = jpeg._decode_batch_pil(blobs)
+        seconds["native"] += t1 - t0
+        seconds["PIL"] += time.perf_counter() - t1
+        if got.shape != want.shape:
+            raise RuntimeError(f"native decoded {got.shape}, PIL {want.shape}")
+        diff = np.abs(got.astype(np.int16) - want)
+        max_diff = max(max_diff, int(diff.max()))
+        differ += int(np.count_nonzero(diff))
+        elements += diff.size
+        frames += len(blobs)
+    mapped = mapped_libjpeg()
+    same = mapped == {os.path.realpath(jpeg_native.ROUTE.library)}
+    tol = 0 if same else JPEG_TOL
+    print(f"{len(clips)} clips, {frames} frames: largest difference {max_diff} levels, "
+          f"{differ / elements:.3e} of {elements} elements differ (tol {tol}: "
+          f"{'one libjpeg' if same else 'two libjpegs'} mapped, {sorted(mapped)}); native "
+          f"{frames / seconds['native']:.1f} frames/s, PIL {frames / seconds['PIL']:.1f} "
+          f"(one clip a call, host clock)")
+    if frames == 0 or max_diff > tol:
+        raise RuntimeError(f"the native JPEG decoder differs from PIL by {max_diff} levels "
+                           f"(tol {tol}) over {frames} frames")
+
+
+def metrics_phase(device, checked: dict, data_root: str) -> tuple[dict, dict]:
     """The seven-metric registry's entry point `calc_metric` on the
     full-width two-stage pipeline (lres `VideoGenerator()` defaults, the sres
-    G at 144x256, `num_fp16_res=4`, `auto`; seeded random weights) against a
-    synthetic 144x256 + 36x64 dataset made with the port's tool:
+    G at 144x256, `num_fp16_res=4`, `auto`; seeded random weights) against
+    the synthetic datasets under `data_root` (`make_metric_datasets`):
     fvd2048_16f on METRIC_ITEMS real and generated clips, fvd2048_128f on
     METRIC_LONG (the sres G on 136 lr frames in one pass),
     fvd2048_128f_subsample8f on METRIC_SUBSAMPLE_CLIPS generated clips (one
@@ -1211,8 +1305,6 @@ def metrics_phase(device, checked: dict) -> tuple[dict, dict]:
     import torch
 
     from long_video_gan_tpu_torch import selftest
-    from long_video_gan_tpu_torch.data import jpeg
-    from long_video_gan_tpu_torch.data.tools.synthetic import make_synthetic_dataset
     from long_video_gan_tpu_torch.metrics import metric_main, metric_utils
     from long_video_gan_tpu_torch.metrics.c3d import C3D, C3DDetector
     from long_video_gan_tpu_torch.metrics.detectors import get_detector
@@ -1229,14 +1321,6 @@ def metrics_phase(device, checked: dict) -> tuple[dict, dict]:
     tmp = tmp_dir.name
     lr = (SRES_KWARGS["lr_height"], SRES_KWARGS["lr_width"])
     hr = (SRES_KWARGS["hr_height"], SRES_KWARGS["hr_width"])
-    t0 = time.perf_counter()
-    make_synthetic_dataset(f"{tmp}/data", [lr, hr], num_videos=METRIC_ITEMS,
-                           frames_per_video=16, num_partitions=4, seed=SEED)
-    make_synthetic_dataset(f"{tmp}/long", [hr], num_videos=METRIC_LONG,
-                           frames_per_video=METRIC_LONG_FRAMES, num_partitions=1, seed=SEED + 1)
-    print(f"synthetic datasets: {METRIC_ITEMS} videos of 16 frames at {lr} and {hr}, "
-          f"{METRIC_LONG} of {METRIC_LONG_FRAMES} at {hr}, in "
-          f"{time.perf_counter() - t0:.1f} s; JPEG decoder: {jpeg.decoder_in_use()[:400]}")
 
     wgen = torch.Generator(device="cpu").manual_seed(SEED + 7)
     lres_G = init_weights_(generator_lres.VideoGenerator(device=device), wgen).eval()
@@ -1292,8 +1376,8 @@ def metrics_phase(device, checked: dict) -> tuple[dict, dict]:
         if not err <= DETECTOR_TOL:
             raise RuntimeError(f"the {family} detector on the card disagrees with the CPU")
 
-    hr_data = dict(dataset_dir=f"{tmp}/data", seq_length=1, height=hr[0], width=hr[1])
-    long_data = dict(hr_data, dataset_dir=f"{tmp}/long")
+    hr_data = dict(dataset_dir=f"{data_root}/data", seq_length=1, height=hr[0], width=hr[1])
+    long_data = dict(hr_data, dataset_dir=f"{data_root}/long")
     base = dict(G=sres_G, lr_G=lres_G, device=device, cache_dir=f"{tmp}/cache",
                 dataset_kwargs=hr_data)
     runs = [("fvd2048_16f", dict(detector=specs["i3d"], max_items_override=METRIC_ITEMS)),

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import sys
 from pathlib import Path
 from typing import Optional
 
@@ -52,8 +53,12 @@ def main(argv: Optional[list[str]] = None) -> list[dict]:
     args = ap.parse_args(argv)
     device = cli_device(args.device)
 
+    from .data.jpeg import decoder_in_use
     from .io.checkpoint import load_generator
     from .metrics import metric_main
+
+    # stderr: stdout carries one JSON line per metric.
+    print(f"JPEG decoder: {decoder_in_use()}", file=sys.stderr)
 
     lres_G, _ = load_generator(args.lres_path, device)
     kwargs = dict(num_runs=args.num_runs, batch_size=args.batch_size, seed=args.seed,

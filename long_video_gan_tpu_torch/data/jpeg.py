@@ -3,8 +3,10 @@ fallback; and JPEG encoding for the dataset tools.
 
 The port's own copy of `long_video_gan_tpu/data/jpeg.py`. The native decoder
 (`csrc/jpeg_decoder.cpp`, bound by `jpeg_native.py`) decodes a batch across a
-libjpeg(-turbo) threadpool in one call; where it cannot be built (no g++ or
-libjpeg), decoding falls back to PIL on the host.
+libjpeg(-turbo) threadpool in one call. It links the system's libjpeg, or
+else the libjpeg-turbo in Pillow's wheel; where neither builds (no g++, or
+no libjpeg at all), decoding falls back to PIL on the host, and
+`decoder_in_use()` says so.
 """
 
 from __future__ import annotations
@@ -34,19 +36,25 @@ def _load_native():
             import warnings
 
             _native_error = f"{type(e).__name__}: {e}"
-            warnings.warn(
-                f"native JPEG decoder unavailable ({_native_error}); "
-                "falling back to PIL (~3.5x slower batch decode).")
+            warnings.warn(f"native JPEG decoder unavailable ({_native_error}); "
+                          "falling back to PIL.")
             _native = None
         _native_checked = True
         return _native
 
 
 def decoder_in_use() -> str:
-    """"native", or "PIL" with the reason the native decoder did not load."""
-    if _load_native() is not None:
-        return "native"
+    """"native" with the libjpeg it loaded (its route and path), or "PIL"
+    with the reason the native decoder did not load."""
+    native = _load_native()
+    if native is not None:
+        return f"native ({native.ROUTE.name} libjpeg {native.ROUTE.library})"
     return f"PIL ({_native_error})"
+
+
+def decode_jpeg(blob: bytes) -> np.ndarray:
+    """Decode one JPEG to [H, W, 3] uint8 RGB."""
+    return decode_jpeg_batch([blob])[0]
 
 
 def decode_jpeg_batch(blobs: list[bytes]) -> np.ndarray:

@@ -52,6 +52,7 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
+from .data.jpeg import decoder_in_use
 from .parallel import mesh
 from .parallel.multihost import (is_main_process, local_device,
                                  maybe_initialize_distributed, world_size)
@@ -310,9 +311,12 @@ def main(argv: Optional[list[str]] = None) -> str:
     if is_main_process():
         Path(run_dir).mkdir(parents=True, exist_ok=True)
         print(f"Run dir: {run_dir}  seed: {args.seed}  processes: {world_size()}")
+        decoder = decoder_in_use()
+        print(f"JPEG decoder: {decoder}")
         with open(Path(run_dir, "config.json"), "w") as fp:
             json.dump(dict(c, run_dir=run_dir, seed=args.seed, device=args.device,
-                           resume=args.resume, processes=world_size()), fp, indent=2)
+                           resume=args.resume, processes=world_size(), jpeg_decoder=decoder),
+                      fp, indent=2)
     train(c, run_dir, args.seed, device, args.resume)
     return run_dir
 

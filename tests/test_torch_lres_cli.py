@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import torch
 
 from long_video_gan_tpu.io import checkpoint as jax_checkpoint
+from long_video_gan_tpu_torch.data.jpeg import decoder_in_use
 from long_video_gan_tpu_torch.data.tools.synthetic import make_synthetic_dataset
 from long_video_gan_tpu_torch.io.checkpoint import load_checkpoint, load_generator
 from long_video_gan_tpu_torch.train_lres import main
@@ -51,6 +52,8 @@ def test_cli_writes_stats_checkpoints_and_samples(run):
     assert all(os.path.getsize(os.path.join(run_dir, "samples", s)) > 0 for s in samples)
     config = json.load(open(os.path.join(run_dir, "config.json")))
     assert config["gan_kwargs"]["G_random_temp_translate"] is True
+    assert config["jpeg_decoder"] == decoder_in_use() and config["jpeg_decoder"].startswith(
+        "native (")
     assert config["device"] == "cpu" and config["resume"] is None
     _, header = load_checkpoint(os.path.join(run_dir, "checkpoints", "ckpt-00000004-train.lvg"))
     assert header == {"step": 4}

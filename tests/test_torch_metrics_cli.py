@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from long_video_gan_tpu_torch.calc_metrics import main
+from long_video_gan_tpu_torch.data.jpeg import decoder_in_use
 from long_video_gan_tpu_torch.data.tools.synthetic import make_synthetic_dataset
 from long_video_gan_tpu_torch.io.checkpoint import save_generator
 from long_video_gan_tpu_torch.models import generator_lres, generator_sres
@@ -58,9 +59,10 @@ def test_cli_two_stage_and_lres_only(env, tmp_path, monkeypatch, capsys):
     for r, result in zip(lines, results):
         assert r["results"] == result["results"]
         assert all(np.isfinite(v) for v in r["results"].values())
-    printed = [json.loads(line) for line in capsys.readouterr().out.splitlines()
-               if line.startswith("{")]
+    captured = capsys.readouterr()
+    printed = [json.loads(line) for line in captured.out.splitlines() if line.startswith("{")]
     assert printed == lines
+    assert captured.err.count(f"JPEG decoder: {decoder_in_use()}\n") == 2
 
 
 def test_cli_needs_cuda_unless_asked_for_cpu(env, tmp_path, monkeypatch):

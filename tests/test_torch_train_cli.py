@@ -19,6 +19,7 @@ from flax import serialization
 
 from long_video_gan_tpu.io import checkpoint as jax_checkpoint
 from long_video_gan_tpu.models import generator_sres as jax_sres
+from long_video_gan_tpu_torch.data.jpeg import decoder_in_use
 from long_video_gan_tpu_torch.data.tools.synthetic import make_synthetic_dataset
 from long_video_gan_tpu_torch.io.checkpoint import load_checkpoint, load_generator
 from long_video_gan_tpu_torch.io.convert_torch import load_jax_variables, module_to_variables
@@ -55,6 +56,8 @@ def test_cli_writes_stats_and_checkpoints(run):
         [f"fake-{s:08d}-hr.mp4" for s in (0, 2, 4)] + ["real-hr.mp4", "real-lr.mp4"])
     config = json.load(open(os.path.join(run_dir, "config.json")))
     assert config["gan_kwargs"]["G_kwargs"]["resample_impl"] == "auto"
+    assert config["jpeg_decoder"] == decoder_in_use() and config["jpeg_decoder"].startswith(
+        "native (")
     # G_ema moved between the first and the last checkpoint.
     first, _ = load_checkpoint(os.path.join(run_dir, "checkpoints", "ckpt-00000000-G-ema.lvg"))
     last, _ = load_checkpoint(os.path.join(run_dir, "checkpoints", "ckpt-00000004-G-ema.lvg"))
