@@ -1,0 +1,14 @@
+"""mfu.train: the model operations of the traced run's untraced cycles over
+their host-clock seconds and the card's dense bf16 peak (989 TFLOP/s), in
+percent. The operations are the dense convolutions and matrix products of G
+and D, forward, input and weight gradients and R1's double backward where it
+runs, counted on the reference trainer on the meta device
+(`flops.DenseFlops`); FIRs and elementwise work are left out."""
+
+from h100_bench.flops import PEAK_FLOPS_BF16
+
+
+def read(ctx):
+    if not ctx.get("flops") or ctx["host_s"] <= 0:
+        return None
+    return 100.0 * ctx["flops"] / ctx["host_s"] / PEAK_FLOPS_BF16
