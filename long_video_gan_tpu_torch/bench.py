@@ -31,9 +31,8 @@ under `selftest`'s bars; then one 16-frame segment on `auto` and on `fused`
 against `matrix` (TF32 off), relative max-abs <= 0.05. Exit 0 if and only if
 all pass.
 
-Otherwise stdout carries exactly one JSON line: the JAX bench's keys
-(`metric`, `value`, `unit`, `vs_baseline`, `chain`, `per_segment_value`,
-`per_segment_vs_baseline`, `mfu`, `device_kind`, `peak_hbm_gb`), then
+Otherwise stdout carries exactly one JSON line: `metric`, `value`, `unit`,
+`chain`, `per_segment_value`, `mfu`, `device_kind`, `peak_hbm_gb`, then
 `impl`, `tflop_per_frame`, `power_limit_w`, `torch`, `cuda`, and `launches`:
 each forward kernel's launches in the timed calls. `mfu` is the chained
 frames/s times `flops_per_frame` (the model's operations counted from its
@@ -71,9 +70,6 @@ METRIC = "sres_synthesis_frames_per_sec_per_chip_256x144"
 CONFIG = dict(hr_height=144, hr_width=256, lr_height=36, lr_width=64, temporal_context=4,
               num_fp16_res=4)
 IMPLS = ("auto", "conv", "matrix", "fused", "packed", "pallas")
-# The first chained `auto` reading (NVIDIA H100 80GB HBM3, 700.00 W; torch
-# 2.11.0, CUDA 12.8): vs_baseline is the frames/s over it.
-BASELINE_FPS = 296.83
 # The H100 SXM's dense bf16 peak (NVIDIA's data sheet, 700 W), FLOP/s.
 PEAK_FLOPS = selftest.PEAK_FLOPS[torch.bfloat16]
 WARMUP = 3
@@ -276,8 +272,8 @@ def measure(G: VideoGenerator, lr: torch.Tensor, z: torch.Tensor, chain: int = 8
 
 
 def _failure(error: str, detail: str) -> dict:
-    return {"metric": METRIC, "value": None, "unit": "frames/s", "vs_baseline": None,
-            "error": error, "detail": detail}
+    return {"metric": METRIC, "value": None, "unit": "frames/s", "error": error,
+            "detail": detail}
 
 
 def main(argv: Optional[list[str]] = None) -> int:
@@ -322,10 +318,8 @@ def main(argv: Optional[list[str]] = None) -> int:
         "metric": METRIC,
         "value": fps,
         "unit": "frames/s",
-        "vs_baseline": fps / BASELINE_FPS,
         "chain": args.chain,
         "per_segment_value": fps_one,
-        "per_segment_vs_baseline": fps_one / BASELINE_FPS,
         "mfu": fps * fpf / PEAK_FLOPS,
         "device_kind": torch.cuda.get_device_name(device),
         "peak_hbm_gb": torch.cuda.max_memory_allocated(device) / 2 ** 30,

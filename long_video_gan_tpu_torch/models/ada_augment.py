@@ -29,6 +29,7 @@ from ..ops.filters import setup_filter, wavelet_lowpass
 from ..ops.grid_sample import affine_grid, grid_sample
 from ..ops.upfirdn2d import downsample2d, upsample2d
 from ..parallel.mesh import global_draw
+from ..utils.profiling import annotate
 
 # ---------------------------------------------------------------------------
 # Batched homogeneous transforms: [n, 3, 3] / [n, 4, 4] float32.
@@ -171,239 +172,240 @@ class AugmentPipe:
     def __call__(self, generator: torch.Generator, videos: torch.Tensor,
                  p: Union[float, torch.Tensor],
                  debug_percentile: Optional[float] = None) -> torch.Tensor:
-        assert videos.ndim == 5
-        n, c, t, height, width = videos.shape
-        dev = videos.device
-        p = torch.as_tensor(p, dtype=torch.float32, device=dev)
-        dp = debug_percentile
+        with annotate("lvg.augment"):
+            assert videos.ndim == 5
+            n, c, t, height, width = videos.shape
+            dev = videos.device
+            p = torch.as_tensor(p, dtype=torch.float32, device=dev)
+            dp = debug_percentile
 
-        def rand(shape=()):
-            return global_draw(lambda m: torch.rand((m,) + shape, generator=generator,
-                                                    device=generator.device), n).to(dev)
+            def rand(shape=()):
+                return global_draw(lambda m: torch.rand((m,) + shape, generator=generator,
+                                                        device=generator.device), n).to(dev)
 
-        def nrand(shape=()):
-            return global_draw(lambda m: torch.randn((m,) + shape, generator=generator,
-                                                     device=generator.device), n).to(dev)
+            def nrand(shape=()):
+                return global_draw(lambda m: torch.randn((m,) + shape, generator=generator,
+                                                         device=generator.device), n).to(dev)
 
-        def where(cond, value, default):
-            return torch.where(cond, value, torch.as_tensor(default, dtype=value.dtype,
-                                                            device=dev))
+            def where(cond, value, default):
+                return torch.where(cond, value, torch.as_tensor(default, dtype=value.dtype,
+                                                                device=dev))
 
-        def full(ref, value):
-            return torch.full_like(ref, float(value))
+            def full(ref, value):
+                return torch.full_like(ref, float(value))
 
-        # ---------------- pixel blits + geometric transform matrix ----------
-        g_inv = torch.eye(3, device=dev).repeat(n, 1, 1)
-        geom_active = False
-        ones = torch.ones(n, device=dev)
+            # ---------------- pixel blits + geometric transform matrix ----------
+            g_inv = torch.eye(3, device=dev).repeat(n, 1, 1)
+            geom_active = False
+            ones = torch.ones(n, device=dev)
 
-        if self.xflip > 0:
-            i = torch.floor(rand() * 2)
-            i = where(rand() < self.xflip * p, i, 0.0)
-            if dp is not None:
-                i = full(i, math.floor(dp * 2))
-            g_inv = g_inv @ scale2d_inv(1 - 2 * i, ones, n, dev)
-            geom_active = True
-
-        if self.rotate90 > 0:
-            i = torch.floor(rand() * 4)
-            i = where(rand() < self.rotate90 * p, i, 0.0)
-            if dp is not None:
-                i = full(i, math.floor(dp * 4))
-            g_inv = g_inv @ rotate2d_inv(-np.pi / 2 * i, n, dev)
-            geom_active = True
-
-        if self.xint > 0:
-            tvec = (rand((2,)) * 2 - 1) * self.xint_max
-            tvec = where(rand((1,)) < self.xint * p, tvec, 0.0)
-            if dp is not None:
-                tvec = full(tvec, (np.float32(dp) * 2 - 1) * self.xint_max)
-            g_inv = g_inv @ translate2d_inv(torch.round(tvec[:, 0] * width),
-                                            torch.round(tvec[:, 1] * height), n, dev)
-            geom_active = True
-
-        if self.scale > 0:
-            s = torch.exp2(nrand() * self.scale_std)
-            s = where(rand() < self.scale * p, s, 1.0)
-            if dp is not None:
-                s = full(s, torch.exp2(_erfinv(dp * 2 - 1) * self.scale_std))
-            g_inv = g_inv @ scale2d_inv(s, s, n, dev)
-            geom_active = True
-
-        p_rot = 1 - torch.sqrt(torch.clamp(1 - self.rotate * p, 0, 1))
-        if self.rotate > 0:
-            theta = (rand() * 2 - 1) * np.pi * self.rotate_max
-            theta = where(rand() < p_rot, theta, 0.0)
-            if dp is not None:
-                theta = full(theta, (np.float32(dp) * 2 - 1) * np.pi * self.rotate_max)
-            g_inv = g_inv @ rotate2d_inv(-theta, n, dev)
-            geom_active = True
-
-        if self.aniso > 0:
-            s = torch.exp2(nrand() * self.aniso_std)
-            s = where(rand() < self.aniso * p, s, 1.0)
-            if dp is not None:
-                s = full(s, torch.exp2(_erfinv(dp * 2 - 1) * self.aniso_std))
-            g_inv = g_inv @ scale2d_inv(s, 1 / s, n, dev)
-            geom_active = True
-
-        if self.rotate > 0:
-            theta = (rand() * 2 - 1) * np.pi * self.rotate_max
-            theta = where(rand() < p_rot, theta, 0.0)
-            if dp is not None:
-                theta = torch.zeros_like(theta)
-            g_inv = g_inv @ rotate2d_inv(-theta, n, dev)
-
-        if self.xfrac > 0:
-            tvec = nrand((2,)) * self.xfrac_std
-            tvec = where(rand((1,)) < self.xfrac * p, tvec, 0.0)
-            if dp is not None:
-                tvec = full(tvec, _erfinv(dp * 2 - 1) * self.xfrac_std)
-            g_inv = g_inv @ translate2d_inv(tvec[:, 0] * width, tvec[:, 1] * height, n, dev)
-            geom_active = True
-
-        # ---------------- execute geometric transform -----------------------
-        if geom_active:
-            hz_geom = torch.as_tensor(setup_filter(wavelet_lowpass("sym6")), device=dev)
-            hz_pad = hz_geom.shape[0] // 4
-            x = videos.reshape(n, c * t, height, width)
-
-            mx = int(min(np.ceil(self.margin_frac * width), width - 1))
-            my = int(min(np.ceil(self.margin_frac * height), height - 1))
-            mx = max(mx, hz_pad * 2)
-            my = max(my, hz_pad * 2)
-            x = F.pad(x, [mx, mx, my, my], mode="reflect")
-
-            x = upsample2d(x, hz_geom, up=2)
-            g_inv = scale2d(2, 2, n, dev) @ g_inv @ scale2d_inv(2, 2, n, dev)
-            g_inv = (translate2d(-0.5, -0.5, n, dev) @ g_inv
-                     @ translate2d_inv(-0.5, -0.5, n, dev))
-
-            out_h = (height + hz_pad * 2) * 2
-            out_w = (width + hz_pad * 2) * 2
-            g_inv = (scale2d(2 / x.shape[3], 2 / x.shape[2], n, dev) @ g_inv
-                     @ scale2d_inv(2 / out_w, 2 / out_h, n, dev))
-
-            x = grid_sample(x, affine_grid(g_inv[:, :2, :], (n, c * t, out_h, out_w)))
-
-            x = downsample2d(x, hz_geom, down=2, padding=-hz_pad * 2, flip_filter=True)
-            videos = x.reshape(n, c, t, height, width)
-
-        # ---------------- color transform -----------------------------------
-        if self.has_color:
-            cmat = torch.eye(4, device=dev).repeat(n, 1, 1)
-            v_luma = torch.as_tensor(np.asarray([1, 1, 1, 0]) / np.sqrt(3), dtype=torch.float32,
-                                     device=dev)
-
-            if self.brightness > 0:
-                b = nrand() * self.brightness_std
-                b = where(rand() < self.brightness * p, b, 0.0)
-                if dp is not None:
-                    b = full(b, _erfinv(dp * 2 - 1) * self.brightness_std)
-                cmat = translate3d(b, b, b, n, dev) @ cmat
-
-            if self.contrast > 0:
-                cf = torch.exp2(nrand() * self.contrast_std)
-                cf = where(rand() < self.contrast * p, cf, 1.0)
-                if dp is not None:
-                    cf = full(cf, torch.exp2(_erfinv(dp * 2 - 1) * self.contrast_std))
-                cmat = scale3d(cf, cf, cf, n, dev) @ cmat
-
-            outer = torch.outer(v_luma, v_luma)
-            eye4 = torch.eye(4, device=dev)
-            if self.lumaflip > 0:
+            if self.xflip > 0:
                 i = torch.floor(rand() * 2)
-                i = where(rand() < self.lumaflip * p, i, 0.0)
+                i = where(rand() < self.xflip * p, i, 0.0)
                 if dp is not None:
                     i = full(i, math.floor(dp * 2))
-                cmat = (eye4 - 2 * outer * i[:, None, None]) @ cmat   # Householder
+                g_inv = g_inv @ scale2d_inv(1 - 2 * i, ones, n, dev)
+                geom_active = True
 
-            if self.hue > 0 and c > 1:
-                theta = (rand() * 2 - 1) * np.pi * self.hue_max
-                theta = where(rand() < self.hue * p, theta, 0.0)
+            if self.rotate90 > 0:
+                i = torch.floor(rand() * 4)
+                i = where(rand() < self.rotate90 * p, i, 0.0)
                 if dp is not None:
-                    theta = full(theta, (np.float32(dp) * 2 - 1) * np.pi * self.hue_max)
-                cmat = rotate3d(v_luma, theta, n, dev) @ cmat
+                    i = full(i, math.floor(dp * 4))
+                g_inv = g_inv @ rotate2d_inv(-np.pi / 2 * i, n, dev)
+                geom_active = True
 
-            if self.saturation > 0 and c > 1:
-                s = torch.exp2(nrand() * self.saturation_std)
-                s = where(rand() < self.saturation * p, s, 1.0)
+            if self.xint > 0:
+                tvec = (rand((2,)) * 2 - 1) * self.xint_max
+                tvec = where(rand((1,)) < self.xint * p, tvec, 0.0)
                 if dp is not None:
-                    s = full(s, torch.exp2(_erfinv(dp * 2 - 1) * self.saturation_std))
-                cmat = (outer + (eye4 - outer) * s[:, None, None]) @ cmat
+                    tvec = full(tvec, (np.float32(dp) * 2 - 1) * self.xint_max)
+                g_inv = g_inv @ translate2d_inv(torch.round(tvec[:, 0] * width),
+                                                torch.round(tvec[:, 1] * height), n, dev)
+                geom_active = True
 
-            flat = videos.reshape(n, c, t * height * width)
-            if c == 3:
-                flat = cmat[:, :3, :3] @ flat + cmat[:, :3, 3:]
-            elif c == 1:
-                cm = cmat[:, :3, :].mean(dim=1, keepdim=True)
-                flat = flat * cm[:, :, :3].sum(dim=2, keepdim=True) + cm[:, :, 3:]
-            else:
-                raise ValueError("videos must be RGB (3) or L (1) channels")
-            videos = flat.reshape(n, c, t, height, width)
-
-        # ---------------- image-space filtering ------------------------------
-        if self.imgfilter > 0:
-            bank = _freq_filter_bank()
-            num_bands = bank.shape[0]
-            assert len(self.imgfilter_bands) == num_bands
-            expected_power = torch.as_tensor(np.array([10, 1, 1, 1]) / 13, dtype=torch.float32,
-                                             device=dev)
-
-            gains = torch.ones((n, num_bands), device=dev)
-            for i, band_strength in enumerate(self.imgfilter_bands):
-                t_i = torch.exp2(nrand() * self.imgfilter_std)
-                t_i = where(rand() < self.imgfilter * p * band_strength, t_i, 1.0)
+            if self.scale > 0:
+                s = torch.exp2(nrand() * self.scale_std)
+                s = where(rand() < self.scale * p, s, 1.0)
                 if dp is not None:
-                    t_i = (full(t_i, torch.exp2(_erfinv(dp * 2 - 1) * self.imgfilter_std))
-                           if band_strength > 0 else torch.ones_like(t_i))
-                tvec = torch.ones((n, num_bands), device=dev)
-                tvec[:, i] = t_i
-                tvec = tvec / (expected_power * tvec.square()).sum(dim=-1, keepdim=True).sqrt()
-                gains = gains * tvec
+                    s = full(s, torch.exp2(_erfinv(dp * 2 - 1) * self.scale_std))
+                g_inv = g_inv @ scale2d_inv(s, s, n, dev)
+                geom_active = True
 
-            hz_prime = gains @ torch.as_tensor(bank, device=dev)           # [N, taps]
-            taps = bank.shape[1]
-            pad = taps // 2
-            # Per-clip separable filter on every channel and frame: a grouped
-            # conv over n * c * t maps.
-            x = videos.reshape(1, n * c * t, height, width)
-            x = _reflect_pad(x, pad)
-            k = hz_prime.repeat_interleave(c * t, dim=0)                   # [N*c*t, taps]
-            x = F.conv2d(x, k.reshape(-1, 1, 1, taps).to(x.dtype), groups=n * c * t)
-            x = F.conv2d(x, k.reshape(-1, 1, taps, 1).to(x.dtype), groups=n * c * t)
-            videos = x.reshape(n, c, t, height, width)
+            p_rot = 1 - torch.sqrt(torch.clamp(1 - self.rotate * p, 0, 1))
+            if self.rotate > 0:
+                theta = (rand() * 2 - 1) * np.pi * self.rotate_max
+                theta = where(rand() < p_rot, theta, 0.0)
+                if dp is not None:
+                    theta = full(theta, (np.float32(dp) * 2 - 1) * np.pi * self.rotate_max)
+                g_inv = g_inv @ rotate2d_inv(-theta, n, dev)
+                geom_active = True
 
-        # ---------------- corruptions ----------------------------------------
-        x = videos.reshape(n, c * t, height, width)
+            if self.aniso > 0:
+                s = torch.exp2(nrand() * self.aniso_std)
+                s = where(rand() < self.aniso * p, s, 1.0)
+                if dp is not None:
+                    s = full(s, torch.exp2(_erfinv(dp * 2 - 1) * self.aniso_std))
+                g_inv = g_inv @ scale2d_inv(s, 1 / s, n, dev)
+                geom_active = True
 
-        if self.noise > 0:
-            sigma = nrand().abs() * self.noise_std
-            sigma = where(rand() < self.noise * p, sigma, 0.0)
-            if dp is not None:
-                sigma = full(sigma, torch.special.erfinv(torch.tensor(dp, dtype=torch.float32))
-                             * self.noise_std)
-            noise = global_draw(lambda m: torch.randn((m,) + x.shape[1:], generator=generator,
-                                                      device=generator.device), n).to(dev)
-            x = x + noise * sigma[:, None, None, None]
+            if self.rotate > 0:
+                theta = (rand() * 2 - 1) * np.pi * self.rotate_max
+                theta = where(rand() < p_rot, theta, 0.0)
+                if dp is not None:
+                    theta = torch.zeros_like(theta)
+                g_inv = g_inv @ rotate2d_inv(-theta, n, dev)
 
-        if self.cutout > 0:
-            size = torch.full((n, 2), self.cutout_size, device=dev)
-            size = where(rand((1,)) < self.cutout * p, size, 0.0)
-            center = rand((2,))
-            if dp is not None:
-                size = full(size, self.cutout_size)
-                center = full(center, dp)
-            coord_x = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5) / width
-            coord_y = (torch.arange(height, dtype=torch.float32, device=dev) + 0.5) / height
-            mask_x = (coord_x[None, None, :] - center[:, 0, None, None]).abs() \
-                >= size[:, 0, None, None] / 2
-            mask_y = (coord_y[None, :, None] - center[:, 1, None, None]).abs() \
-                >= size[:, 1, None, None] / 2
-            mask = (mask_x | mask_y).to(x.dtype)
-            x = x * mask[:, None]
+            if self.xfrac > 0:
+                tvec = nrand((2,)) * self.xfrac_std
+                tvec = where(rand((1,)) < self.xfrac * p, tvec, 0.0)
+                if dp is not None:
+                    tvec = full(tvec, _erfinv(dp * 2 - 1) * self.xfrac_std)
+                g_inv = g_inv @ translate2d_inv(tvec[:, 0] * width, tvec[:, 1] * height, n, dev)
+                geom_active = True
 
-        return x.reshape(n, c, t, height, width)
+            # ---------------- execute geometric transform -----------------------
+            if geom_active:
+                hz_geom = torch.as_tensor(setup_filter(wavelet_lowpass("sym6")), device=dev)
+                hz_pad = hz_geom.shape[0] // 4
+                x = videos.reshape(n, c * t, height, width)
+
+                mx = int(min(np.ceil(self.margin_frac * width), width - 1))
+                my = int(min(np.ceil(self.margin_frac * height), height - 1))
+                mx = max(mx, hz_pad * 2)
+                my = max(my, hz_pad * 2)
+                x = F.pad(x, [mx, mx, my, my], mode="reflect")
+
+                x = upsample2d(x, hz_geom, up=2)
+                g_inv = scale2d(2, 2, n, dev) @ g_inv @ scale2d_inv(2, 2, n, dev)
+                g_inv = (translate2d(-0.5, -0.5, n, dev) @ g_inv
+                         @ translate2d_inv(-0.5, -0.5, n, dev))
+
+                out_h = (height + hz_pad * 2) * 2
+                out_w = (width + hz_pad * 2) * 2
+                g_inv = (scale2d(2 / x.shape[3], 2 / x.shape[2], n, dev) @ g_inv
+                         @ scale2d_inv(2 / out_w, 2 / out_h, n, dev))
+
+                x = grid_sample(x, affine_grid(g_inv[:, :2, :], (n, c * t, out_h, out_w)))
+
+                x = downsample2d(x, hz_geom, down=2, padding=-hz_pad * 2, flip_filter=True)
+                videos = x.reshape(n, c, t, height, width)
+
+            # ---------------- color transform -----------------------------------
+            if self.has_color:
+                cmat = torch.eye(4, device=dev).repeat(n, 1, 1)
+                v_luma = torch.as_tensor(np.asarray([1, 1, 1, 0]) / np.sqrt(3), dtype=torch.float32,
+                                         device=dev)
+
+                if self.brightness > 0:
+                    b = nrand() * self.brightness_std
+                    b = where(rand() < self.brightness * p, b, 0.0)
+                    if dp is not None:
+                        b = full(b, _erfinv(dp * 2 - 1) * self.brightness_std)
+                    cmat = translate3d(b, b, b, n, dev) @ cmat
+
+                if self.contrast > 0:
+                    cf = torch.exp2(nrand() * self.contrast_std)
+                    cf = where(rand() < self.contrast * p, cf, 1.0)
+                    if dp is not None:
+                        cf = full(cf, torch.exp2(_erfinv(dp * 2 - 1) * self.contrast_std))
+                    cmat = scale3d(cf, cf, cf, n, dev) @ cmat
+
+                outer = torch.outer(v_luma, v_luma)
+                eye4 = torch.eye(4, device=dev)
+                if self.lumaflip > 0:
+                    i = torch.floor(rand() * 2)
+                    i = where(rand() < self.lumaflip * p, i, 0.0)
+                    if dp is not None:
+                        i = full(i, math.floor(dp * 2))
+                    cmat = (eye4 - 2 * outer * i[:, None, None]) @ cmat   # Householder
+
+                if self.hue > 0 and c > 1:
+                    theta = (rand() * 2 - 1) * np.pi * self.hue_max
+                    theta = where(rand() < self.hue * p, theta, 0.0)
+                    if dp is not None:
+                        theta = full(theta, (np.float32(dp) * 2 - 1) * np.pi * self.hue_max)
+                    cmat = rotate3d(v_luma, theta, n, dev) @ cmat
+
+                if self.saturation > 0 and c > 1:
+                    s = torch.exp2(nrand() * self.saturation_std)
+                    s = where(rand() < self.saturation * p, s, 1.0)
+                    if dp is not None:
+                        s = full(s, torch.exp2(_erfinv(dp * 2 - 1) * self.saturation_std))
+                    cmat = (outer + (eye4 - outer) * s[:, None, None]) @ cmat
+
+                flat = videos.reshape(n, c, t * height * width)
+                if c == 3:
+                    flat = cmat[:, :3, :3] @ flat + cmat[:, :3, 3:]
+                elif c == 1:
+                    cm = cmat[:, :3, :].mean(dim=1, keepdim=True)
+                    flat = flat * cm[:, :, :3].sum(dim=2, keepdim=True) + cm[:, :, 3:]
+                else:
+                    raise ValueError("videos must be RGB (3) or L (1) channels")
+                videos = flat.reshape(n, c, t, height, width)
+
+            # ---------------- image-space filtering ------------------------------
+            if self.imgfilter > 0:
+                bank = _freq_filter_bank()
+                num_bands = bank.shape[0]
+                assert len(self.imgfilter_bands) == num_bands
+                expected_power = torch.as_tensor(np.array([10, 1, 1, 1]) / 13, dtype=torch.float32,
+                                                 device=dev)
+
+                gains = torch.ones((n, num_bands), device=dev)
+                for i, band_strength in enumerate(self.imgfilter_bands):
+                    t_i = torch.exp2(nrand() * self.imgfilter_std)
+                    t_i = where(rand() < self.imgfilter * p * band_strength, t_i, 1.0)
+                    if dp is not None:
+                        t_i = (full(t_i, torch.exp2(_erfinv(dp * 2 - 1) * self.imgfilter_std))
+                               if band_strength > 0 else torch.ones_like(t_i))
+                    tvec = torch.ones((n, num_bands), device=dev)
+                    tvec[:, i] = t_i
+                    tvec = tvec / (expected_power * tvec.square()).sum(dim=-1, keepdim=True).sqrt()
+                    gains = gains * tvec
+
+                hz_prime = gains @ torch.as_tensor(bank, device=dev)           # [N, taps]
+                taps = bank.shape[1]
+                pad = taps // 2
+                # Per-clip separable filter on every channel and frame: a grouped
+                # conv over n * c * t maps.
+                x = videos.reshape(1, n * c * t, height, width)
+                x = _reflect_pad(x, pad)
+                k = hz_prime.repeat_interleave(c * t, dim=0)                   # [N*c*t, taps]
+                x = F.conv2d(x, k.reshape(-1, 1, 1, taps).to(x.dtype), groups=n * c * t)
+                x = F.conv2d(x, k.reshape(-1, 1, taps, 1).to(x.dtype), groups=n * c * t)
+                videos = x.reshape(n, c, t, height, width)
+
+            # ---------------- corruptions ----------------------------------------
+            x = videos.reshape(n, c * t, height, width)
+
+            if self.noise > 0:
+                sigma = nrand().abs() * self.noise_std
+                sigma = where(rand() < self.noise * p, sigma, 0.0)
+                if dp is not None:
+                    sigma = full(sigma, torch.special.erfinv(torch.tensor(dp, dtype=torch.float32))
+                                 * self.noise_std)
+                noise = global_draw(lambda m: torch.randn((m,) + x.shape[1:], generator=generator,
+                                                          device=generator.device), n).to(dev)
+                x = x + noise * sigma[:, None, None, None]
+
+            if self.cutout > 0:
+                size = torch.full((n, 2), self.cutout_size, device=dev)
+                size = where(rand((1,)) < self.cutout * p, size, 0.0)
+                center = rand((2,))
+                if dp is not None:
+                    size = full(size, self.cutout_size)
+                    center = full(center, dp)
+                coord_x = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5) / width
+                coord_y = (torch.arange(height, dtype=torch.float32, device=dev) + 0.5) / height
+                mask_x = (coord_x[None, None, :] - center[:, 0, None, None]).abs() \
+                    >= size[:, 0, None, None] / 2
+                mask_y = (coord_y[None, :, None] - center[:, 1, None, None]).abs() \
+                    >= size[:, 1, None, None] / 2
+                mask = (mask_x | mask_y).to(x.dtype)
+                x = x * mask[:, None]
+
+            return x.reshape(n, c, t, height, width)
 
     def random_temporal_filter(self, generator: Optional[torch.Generator], video: torch.Tensor,
                                p: Union[float, torch.Tensor], min_ksize: int = 2,

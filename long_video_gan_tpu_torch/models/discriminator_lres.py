@@ -31,6 +31,7 @@ from ..ops.conv import conv
 from ..ops.filters import binomial_filter
 from ..ops.upfirdn2d import downsample2d
 from ..utils.misc import assert_shape
+from ..utils.profiling import annotate
 from .common import FullyConnectedLayer, TemporalLinearDownsample, filter_buffer, randn_
 
 # ---------------------------------------------------------------------------
@@ -250,11 +251,12 @@ class VideoDiscriminator(nn.Module):
             in_channels=cfgs[-1]["out_channels"], **(epilogue_kwargs or {}), device=device)
 
     def forward(self, videos: torch.Tensor) -> torch.Tensor:
-        assert_shape(videos, (None, self.channels, self.seq_length, None, None))
-        assert videos.shape[3] == self.max_edge or videos.shape[4] == self.max_edge
-        px = (self.max_edge - videos.shape[4]) // 2
-        py = (self.max_edge - videos.shape[3]) // 2
-        feats = F.pad(videos, [px, px, py, py])
-        for block in self.blocks:
-            feats = block(feats)
-        return self.epilogue(feats)
+        with annotate("lvg.D"):
+            assert_shape(videos, (None, self.channels, self.seq_length, None, None))
+            assert videos.shape[3] == self.max_edge or videos.shape[4] == self.max_edge
+            px = (self.max_edge - videos.shape[4]) // 2
+            py = (self.max_edge - videos.shape[3]) // 2
+            feats = F.pad(videos, [px, px, py, py])
+            for block in self.blocks:
+                feats = block(feats)
+            return self.epilogue(feats)

@@ -24,6 +24,7 @@ from ..ops.conv2d_resample import conv2d_resample
 from ..ops.filters import setup_filter
 from ..ops.upfirdn2d import downsample2d
 from ..parallel.mesh import all_gather_batch, local_rows
+from ..utils.profiling import annotate
 from .common import FullyConnectedLayer, SpatialBilinearUpsample, filter_buffer, randn_
 
 # ---------------------------------------------------------------------------
@@ -240,18 +241,19 @@ class VideoDiscriminator(nn.Module):
         return self.upsample(lr_video)
 
     def forward(self, lr_video: torch.Tensor, hr_video: torch.Tensor) -> torch.Tensor:
-        if lr_video.shape[3] == self.lr_height and lr_video.shape[4] == self.lr_width:
-            lr_video = self.upsample(lr_video)
-        else:
-            assert lr_video.shape[3] == self.hr_height and lr_video.shape[4] == self.hr_width
+        with annotate("lvg.D"):
+            if lr_video.shape[3] == self.lr_height and lr_video.shape[4] == self.lr_width:
+                lr_video = self.upsample(lr_video)
+            else:
+                assert lr_video.shape[3] == self.hr_height and lr_video.shape[4] == self.hr_width
 
-        videos = torch.cat([lr_video, hr_video], dim=1)
-        p = (videos.shape[4] - videos.shape[3]) // 2
-        videos = F.pad(videos, [0, 0, p, p])
-        n, c, t, h, w = videos.shape
-        videos = videos.reshape(n, c * t, h, w)
+            videos = torch.cat([lr_video, hr_video], dim=1)
+            p = (videos.shape[4] - videos.shape[3]) // 2
+            videos = F.pad(videos, [0, 0, p, p])
+            n, c, t, h, w = videos.shape
+            videos = videos.reshape(n, c * t, h, w)
 
-        feats = None
-        for res in self.block_resolutions:
-            feats, videos = getattr(self, f"b{res}")(feats, videos)
-        return self.b4(feats)
+            feats = None
+            for res in self.block_resolutions:
+                feats, videos = getattr(self, f"b{res}")(feats, videos)
+            return self.b4(feats)

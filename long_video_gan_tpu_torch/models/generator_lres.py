@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from ..ops.bias_act import bias_act
 from ..ops.filters import design_kaiser_lowpass
 from ..utils.misc import assert_shape
+from ..utils.profiling import annotate
 from .common import (
     FullyConnectedLayer,
     MagnitudeEMA,
@@ -469,19 +470,20 @@ class VideoGenerator(nn.Module):
         """Generate [batch, 3, seq_length, out_height, out_width] videos from
         injected white `noise` (shape `noise_shape(...)`) or noise drawn from
         `generator`."""
-        temporal_emb = self.sample_temporal_emb(batch_size, seq_length, noise=noise,
-                                                generator=generator)
-        latent_ws = self.compute_latent_ws(temporal_emb, seq_length)
-        in_len = self.compute_seq_lengths(seq_length)[0]
+        with annotate("lvg.G"):
+            temporal_emb = self.sample_temporal_emb(batch_size, seq_length, noise=noise,
+                                                    generator=generator)
+            latent_ws = self.compute_latent_ws(temporal_emb, seq_length)
+            in_len = self.compute_seq_lengths(seq_length)[0]
 
-        w0 = latent_ws.pop(0)                                            # [N, w, T_in]
-        n = w0.shape[0]
-        temporal_input = self.w_to_temp_input(
-            w0.transpose(1, 2).reshape(n * in_len, self.latent_w_dim)
-        ).reshape(n, in_len, -1).transpose(1, 2)
+            w0 = latent_ws.pop(0)                                            # [N, w, T_in]
+            n = w0.shape[0]
+            temporal_input = self.w_to_temp_input(
+                w0.transpose(1, 2).reshape(n * in_len, self.latent_w_dim)
+            ).reshape(n, in_len, -1).transpose(1, 2)
 
-        return self.synthesize_video(temporal_input, latent_ws, seq_length,
-                                     magnitude_ema_beta, dtype)
+            return self.synthesize_video(temporal_input, latent_ws, seq_length,
+                                         magnitude_ema_beta, dtype)
 
 
 def sample_video_segments(G: VideoGenerator, batch_size: int, seq_length: int,

@@ -28,6 +28,7 @@ from ..ops.upfirdn2d import (downsample2d, downsample2d_padding, upfirdn2d_macs,
                              upsample2d, upsample2d_padding)
 from ..parallel.mesh import mean_over_processes
 from ..utils.misc import assert_shape
+from ..utils.profiling import annotate
 from .common import FullyConnectedLayer, checkpoint_block, filter_buffer, randn_
 
 
@@ -352,16 +353,17 @@ class SynthesisNetwork(nn.Module):
         assert_shape(ws, (None, self.num_ws, self.w_dim))
         x = self.input(ws.shape[0]) if self.fourfeats else None
         remat = self.block_remat and torch.is_grad_enabled()
-        for i, layer in enumerate(self.layers):
-            cond = conds[i]
-            x = cond if x is None else torch.cat([x, cond.to(x.dtype)], dim=1)
-            if remat:
-                x = checkpoint_block(functools.partial(layer, force_fp32=force_fp32,
-                                                       update_emas=update_emas),
-                                     functools.partial(layer, force_fp32=force_fp32),
-                                     x, ws[:, i].float())
-            else:
-                x = layer(x, ws[:, i].float(), force_fp32, update_emas)
+        for i, (name, layer) in enumerate(zip(self.layer_names, self.layers)):
+            with annotate(f"lvg.layer.{name}"):
+                cond = conds[i]
+                x = cond if x is None else torch.cat([x, cond.to(x.dtype)], dim=1)
+                if remat:
+                    x = checkpoint_block(functools.partial(layer, force_fp32=force_fp32,
+                                                           update_emas=update_emas),
+                                         functools.partial(layer, force_fp32=force_fp32),
+                                         x, ws[:, i].float())
+                else:
+                    x = layer(x, ws[:, i].float(), force_fp32, update_emas)
         if self.output_scale != 1:
             x = x * self.output_scale
         assert_shape(x, (None, self.img_channels, self.img_height, self.img_width))
@@ -538,10 +540,12 @@ class Generator(nn.Module):
                             self.cond_width))
         out_seq_length = cond.shape[2] - 2 * self.cond_context
         assert out_seq_length > 0
-        conds = self.prep_cond(cond)
+        with annotate("lvg.prep_cond"):
+            conds = self.prep_cond(cond)
         # Map once per video, repeat per frame (z is identical across frames).
-        ws = self.mapping(z, truncation_psi=truncation_psi,
-                          truncation_cutoff=truncation_cutoff, update_emas=update_emas)
+        with annotate("lvg.mapping"):
+            ws = self.mapping(z, truncation_psi=truncation_psi,
+                              truncation_cutoff=truncation_cutoff, update_emas=update_emas)
         ws = ws.repeat_interleave(out_seq_length, dim=0)                # [(n t), num_ws, w]
         img = self.synthesis(ws, conds, update_emas=update_emas, **synthesis_kwargs)
         n = z.shape[0]
@@ -590,13 +594,14 @@ class VideoGenerator(nn.Module):
         """`z` [N, latent_z_dim] is injected or drawn from `generator`."""
         batch = lr_video.shape[0]
         assert lr_video.shape[2] - 2 * self.temporal_context > 0
-        if z is None:
-            if generator is None:
-                raise ValueError("need z or a torch.Generator to draw it from")
-            z = torch.randn((batch, self.latent_z_dim), generator=generator,
-                            device=generator.device).to(lr_video.device)
-        update_emas = magnitude_ema_beta < 1
-        return self.SG3(z, lr_video, update_emas=update_emas, **kwargs)
+        with annotate("lvg.G"):
+            if z is None:
+                if generator is None:
+                    raise ValueError("need z or a torch.Generator to draw it from")
+                z = torch.randn((batch, self.latent_z_dim), generator=generator,
+                                device=generator.device).to(lr_video.device)
+            update_emas = magnitude_ema_beta < 1
+            return self.SG3(z, lr_video, update_emas=update_emas, **kwargs)
 
 
 def sample_video_segments(G: VideoGenerator, lr_video: torch.Tensor, segment_length: int = 8,
@@ -611,7 +616,8 @@ def sample_video_segments(G: VideoGenerator, lr_video: torch.Tensor, segment_len
     of the one being yielded: the device keeps synthesizing while the
     consumer copies and encodes, and the consumer's `.cpu()` is the only
     synchronisation. Each in-flight segment holds one hr segment plus its
-    synthesis workspace on the device.
+    synthesis workspace on the device. While a profiler records, each
+    window's enqueue is a span `lvg.segment`.
     """
     n, c, t, h, w = lr_video.shape
     out_t = t - 2 * temporal_context
@@ -624,7 +630,8 @@ def sample_video_segments(G: VideoGenerator, lr_video: torch.Tensor, segment_len
     win = segment_length + 2 * temporal_context
     pending = collections.deque()
     for start in range(0, out_t, segment_length):
-        pending.append(G(lr_video[:, :, start:start + win], z=z, **kwargs))
+        with annotate("lvg.segment"):
+            pending.append(G(lr_video[:, :, start:start + win], z=z, **kwargs))
         while len(pending) > max(prefetch, 0):
             yield pending.popleft()
     while pending:

@@ -32,6 +32,10 @@ filters) and `flip_filter` take the composed path, as in the JAX package;
 its wrapper; a CUDA tensor launches the kernel or raises. The fifth kernel,
 K5 (`filtered_lrelu_polyphase.py`), has no `impl`: as in the JAX package, it
 is reached through its own entry point.
+
+While a profiler records, each call opens the span `lvg.filtered_lrelu.<path>`
+after dispatch, the path taken: `packed`, `fused`, `exact` (K4) or
+`composed`; the kernels' backward opens `<span>.bwd` (`utils/profiling.py`).
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from typing import Optional
 
 import torch
 
+from ..utils.profiling import annotate
 from .bias_act import bias_act
 from .upfirdn2d import Filter, filter_size, parse_padding, upfirdn2d
 
@@ -73,7 +78,8 @@ def filtered_lrelu(
     if impl == "pallas":
         from .filtered_lrelu_exact import filtered_lrelu_exact
 
-        return filtered_lrelu_exact(x, fu, fd, b, **kw)
+        with annotate("lvg.filtered_lrelu.exact"):
+            return filtered_lrelu_exact(x, fu, fd, b, **kw)
     if impl in ("packed", "fused"):
         fu_w, fu_h = filter_size(fu)
         fd_w, fd_h = filter_size(fd)
@@ -82,15 +88,18 @@ def filtered_lrelu(
             if impl == "packed":
                 from .filtered_lrelu_cuda import filtered_lrelu_packed
 
-                return filtered_lrelu_packed(x, fu, fd, b, **kw)
+                with annotate("lvg.filtered_lrelu.packed"):
+                    return filtered_lrelu_packed(x, fu, fd, b, **kw)
             from .filtered_lrelu_fused import filtered_lrelu_fused
 
-            return filtered_lrelu_fused(x, fu, fd, b, **kw)
+            with annotate("lvg.filtered_lrelu.fused"):
+                return filtered_lrelu_fused(x, fu, fd, b, **kw)
     elif impl not in ("conv", "matrix"):
         raise ValueError(f"unknown filtered_lrelu impl: {impl!r}")
-    return filtered_lrelu_composed(x, fu, fd, b, up=up, down=down, padding=padding,
-                                   gain=gain, slope=slope, clamp=clamp,
-                                   flip_filter=flip_filter)
+    with annotate("lvg.filtered_lrelu.composed"):
+        return filtered_lrelu_composed(x, fu, fd, b, up=up, down=down, padding=padding,
+                                       gain=gain, slope=slope, clamp=clamp,
+                                       flip_filter=flip_filter)
 
 
 def filtered_lrelu_composed(

@@ -29,6 +29,7 @@ from typing import Optional
 import torch
 
 from ..utils.nvcc import load_library
+from ..utils.profiling import annotate, backward_span
 from . import filtered_lrelu_bands as bands
 from .filtered_lrelu import output_size
 from .upfirdn2d import Filter, as_filter_tensor, parse_padding
@@ -109,13 +110,15 @@ class _FilteredLReLU(torch.autograd.Function):
     def forward(ctx, x, fu, fd, up, down, padding, gain, slope, clamp):
         ctx.save_for_backward(x)
         ctx.args = (fu, fd, up, down, padding, gain, slope, clamp)
+        ctx.span = backward_span("lvg.filtered_lrelu.")
         fn = bands.banded_fwd_plain if x.device.type == "cpu" else filtered_lrelu_fwd_cuda
         return fn(x, fu, fd, up, down, padding, gain, slope, clamp)
 
     @staticmethod
     def backward(ctx, dy):
         (x,) = ctx.saved_tensors
-        return (_FilteredLReLUGrad.apply(x, dy, ctx.args),) + (None,) * 8
+        with annotate(ctx.span):
+            return (_FilteredLReLUGrad.apply(x, dy, ctx.args),) + (None,) * 8
 
 
 class _FilteredLReLUGrad(torch.autograd.Function):

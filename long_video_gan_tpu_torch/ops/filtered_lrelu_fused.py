@@ -37,6 +37,7 @@ from typing import Optional
 import torch
 
 from ..utils.nvcc import load_library
+from ..utils.profiling import annotate, backward_span
 from . import filtered_lrelu_cuda as cuda
 from .filtered_lrelu_bands import banded_bwd_plain, banded_fwd_plain
 from .filtered_lrelu_cuda import (TC_BWD_ARGS, TC_BWD_U_ARGS, TC_FWD_ARGS, bwd_u_cuda,
@@ -87,13 +88,15 @@ class _FusedFilteredLReLU(torch.autograd.Function):
     def forward(ctx, x, fu, fd, up, down, padding, gain, slope, clamp):
         ctx.save_for_backward(x)
         ctx.args = (fu, fd, up, down, padding, gain, slope, clamp)
+        ctx.span = backward_span("lvg.filtered_lrelu.")
         fn = banded_fwd_plain if x.device.type == "cpu" else fused_fwd_cuda
         return fn(x, fu, fd, up, down, padding, gain, slope, clamp)
 
     @staticmethod
     def backward(ctx, dy):
         (x,) = ctx.saved_tensors
-        return (_FusedFilteredLReLUGrad.apply(x, dy, ctx.args),) + (None,) * 8
+        with annotate(ctx.span):
+            return (_FusedFilteredLReLUGrad.apply(x, dy, ctx.args),) + (None,) * 8
 
 
 class _FusedFilteredLReLUGrad(torch.autograd.Function):

@@ -24,6 +24,10 @@ micro-batch of 16 that way (NVIDIA H100).
 
 Filters are numpy arrays, torch tensors (modules keep them as non-persistent
 buffers, so they live on the module's device) or None (identity).
+
+While a profiler records, each call opens the span `lvg.upfirdn2d.<backend>`
+and each backward of the Function `<span>.bwd`, inside the `.bwd` span of the
+`lvg.filtered_lrelu.*` call whose forward made it (`utils/profiling.py`).
 """
 
 from __future__ import annotations
@@ -34,6 +38,8 @@ from typing import Optional, Union
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..utils.profiling import annotate, backward_span
 
 Filter = Optional[Union[np.ndarray, torch.Tensor]]
 
@@ -103,10 +109,12 @@ def upfirdn2d(x: torch.Tensor, f: Filter, up=1, down=1, padding=0, flip_filter=F
     assert x.shape[3] * upx + px0 + px1 >= fw and x.shape[2] * upy + py0 + py1 >= fh, (
         f"upsampled buffer smaller than filter {fh}x{fw}")
     if impl == "matrix" and f.ndim == 1:
-        return _upfirdn2d_matrix(x, f, (upx, upy), (downx, downy), padding, bool(flip_filter),
-                                 float(gain))
-    return _Upfirdn2d.apply(x, f, (upx, upy), (downx, downy), padding, bool(flip_filter),
-                            float(gain))
+        with annotate("lvg.upfirdn2d.matrix"):
+            return _upfirdn2d_matrix(x, f, (upx, upy), (downx, downy), padding,
+                                     bool(flip_filter), float(gain))
+    with annotate("lvg.upfirdn2d.conv"):
+        return _Upfirdn2d.apply(x, f, (upx, upy), (downx, downy), padding, bool(flip_filter),
+                                float(gain))
 
 
 class _Upfirdn2d(torch.autograd.Function):
@@ -116,6 +124,7 @@ class _Upfirdn2d(torch.autograd.Function):
     def forward(ctx, x, f, up, down, padding, flip_filter, gain):
         ctx.save_for_backward(f)
         ctx.args = (tuple(x.shape), up, down, padding, flip_filter, gain)
+        ctx.spans = (backward_span("lvg.filtered_lrelu."), backward_span("lvg.upfirdn2d."))
         return _upfirdn2d_conv(x, f, up, down, padding, flip_filter, gain)
 
     @staticmethod
@@ -127,7 +136,10 @@ class _Upfirdn2d(torch.autograd.Function):
         out_h, out_w = dy.shape[2:]
         padding = (fw - px0 - 1, in_w * upx - out_w * downx + px0 - upx + 1,
                    fh - py0 - 1, in_h * upy - out_h * downy + py0 - upy + 1)
-        dx = _Upfirdn2d.apply(dy, f, (downx, downy), (upx, upy), padding, not flip_filter, gain)
+        owner, span = ctx.spans
+        with annotate(owner), annotate(span):
+            dx = _Upfirdn2d.apply(dy, f, (downx, downy), (upx, upy), padding, not flip_filter,
+                                  gain)
         assert tuple(dx.shape) == in_shape, (tuple(dx.shape), in_shape)
         return dx, None, None, None, None, None, None
 

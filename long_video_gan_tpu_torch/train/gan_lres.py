@@ -39,6 +39,7 @@ from ..models.generator_lres import VideoGenerator
 from ..parallel import mesh
 from ..parallel.multihost import local_batch_size
 from ..utils.misc import assert_shape
+from ..utils.profiling import annotate
 from . import stats as stats_lib
 from .common import (Adam, collect_grads, ema_beta_schedule, lerp_trees, micro_loss,
                      random_temporal_crop, scrub_grads, temporal_scale_augment, warmup_lrate)
@@ -172,86 +173,93 @@ class LowResVideoGAN:
     def _apply(self, opt: Adam, gain: float, base_lrate: float, warmup_steps: int) -> float:
         """Scrub the accumulated gradients of `opt`'s parameters, clear
         them, and take one Adam step at the warmed-up learning rate."""
-        params = opt.params
-        # One mean over the processes, of the micro-batch loop's sums: JAX
-        # scrubs gradients that are already global means.
-        grads = scrub_grads(mesh.all_reduce_mean_(collect_grads(params)), gain=gain)
-        for p in params:
-            p.grad = None
-        lrate = warmup_lrate(base_lrate, self.step, warmup_steps)
-        opt.step(grads, lrate)
-        return lrate
+        with annotate("lvg.adam"):
+            params = opt.params
+            # One mean over the processes, of the micro-batch loop's sums: JAX
+            # scrubs gradients that are already global means.
+            grads = scrub_grads(mesh.all_reduce_mean_(collect_grads(params)), gain=gain)
+            for p in params:
+                p.grad = None
+            lrate = warmup_lrate(base_lrate, self.step, warmup_steps)
+            opt.step(grads, lrate)
+            return lrate
 
     def _chunks(self, x: torch.Tensor, accum: int) -> tuple[torch.Tensor, ...]:
         assert x.shape[0] % accum == 0, (x.shape, accum)
         return x.split(x.shape[0] // accum)
 
     def update_G(self, generator: torch.Generator) -> dict:
-        accum = self.G_grad_accum
-        micro = self.local_batch // accum
-        self.G.requires_grad_(True)
-        self.D.requires_grad_(False)
-        zero = torch.zeros(3, device=self.device)
-        stats = {k: zero for k in ("loss/G_score", "loss/G_sign", "loss/G_loss")}
-        try:
-            for _ in range(accum):
-                loss, logits = micro_loss(self.remat, self.G_micro_loss, generator, micro)
-                loss.backward()
-                stats = {
-                    "loss/G_score": stats["loss/G_score"] + stats_lib.moments(logits),
-                    "loss/G_sign": stats["loss/G_sign"] + stats_lib.moments(torch.sign(logits)),
-                    "loss/G_loss": stats["loss/G_loss"] + stats_lib.loss_moments(loss),
-                }
-        finally:
-            self.D.requires_grad_(True)
-        lrate = self._apply(self.opt_G, 1.0 / accum, self.G_lrate, self.G_warmup_steps)
-        stats["progress/G_lrate"] = stats_lib.scalar_moments(lrate)
-        return stats
+        with annotate("lvg.update_G"):
+            accum = self.G_grad_accum
+            micro = self.local_batch // accum
+            self.G.requires_grad_(True)
+            self.D.requires_grad_(False)
+            zero = torch.zeros(3, device=self.device)
+            stats = {k: zero for k in ("loss/G_score", "loss/G_sign", "loss/G_loss")}
+            try:
+                for _ in range(accum):
+                    loss, logits = micro_loss(self.remat, self.G_micro_loss, generator, micro)
+                    loss.backward()
+                    stats = {
+                        "loss/G_score": stats["loss/G_score"] + stats_lib.moments(logits),
+                        "loss/G_sign": stats["loss/G_sign"] + stats_lib.moments(torch.sign(logits)),
+                        "loss/G_loss": stats["loss/G_loss"] + stats_lib.loss_moments(loss),
+                    }
+            finally:
+                self.D.requires_grad_(True)
+            lrate = self._apply(self.opt_G, 1.0 / accum, self.G_lrate, self.G_warmup_steps)
+            stats["progress/G_lrate"] = stats_lib.scalar_moments(lrate)
+            return stats
 
     def update_D(self, generator: torch.Generator, real_video: torch.Tensor) -> dict:
-        assert_shape(real_video, (self.local_batch, self.channels, self.seq_length,
-                                  self.height, self.width))
-        accum = self.D_grad_accum
-        self.D.requires_grad_(True)
-        names = ("loss/D_score_fake", "loss/D_score_real", "loss/D_sign_fake",
-                 "loss/D_sign_real", "loss/D_loss")
-        zero = torch.zeros(3, device=self.device)
-        stats = {k: zero for k in names}
-        for real in self._chunks(real_video, accum):
-            # Each micro-batch's fakes, moving G's magnitude EMAs in place.
-            with torch.no_grad():
-                fake = self.generate(generator, real.shape[0], self.G_magnitude_ema_beta)
-            loss, flg, rlg = micro_loss(self.remat, self.D_micro_loss, generator, fake, real)
-            loss.backward()
-            stats = {
-                "loss/D_score_fake": stats["loss/D_score_fake"] + stats_lib.moments(flg),
-                "loss/D_score_real": stats["loss/D_score_real"] + stats_lib.moments(rlg),
-                "loss/D_sign_fake": stats["loss/D_sign_fake"] + stats_lib.moments(torch.sign(flg)),
-                "loss/D_sign_real": stats["loss/D_sign_real"] + stats_lib.moments(torch.sign(rlg)),
-                "loss/D_loss": stats["loss/D_loss"] + stats_lib.loss_moments(loss),
-            }
-        lrate = self._apply(self.opt_D, 1.0 / accum, self.D_lrate, self.D_warmup_steps)
-        stats["progress/D_lrate"] = stats_lib.scalar_moments(lrate)
-        return stats
+        with annotate("lvg.update_D"):
+            assert_shape(real_video, (self.local_batch, self.channels, self.seq_length,
+                                      self.height, self.width))
+            accum = self.D_grad_accum
+            self.D.requires_grad_(True)
+            names = ("loss/D_score_fake", "loss/D_score_real", "loss/D_sign_fake",
+                     "loss/D_sign_real", "loss/D_loss")
+            zero = torch.zeros(3, device=self.device)
+            stats = {k: zero for k in names}
+            for real in self._chunks(real_video, accum):
+                # Each micro-batch's fakes, moving G's magnitude EMAs in place.
+                with torch.no_grad():
+                    fake = self.generate(generator, real.shape[0], self.G_magnitude_ema_beta)
+                loss, flg, rlg = micro_loss(self.remat, self.D_micro_loss, generator, fake, real)
+                loss.backward()
+                stats = {
+                    "loss/D_score_fake": stats["loss/D_score_fake"] + stats_lib.moments(flg),
+                    "loss/D_score_real": stats["loss/D_score_real"] + stats_lib.moments(rlg),
+                    "loss/D_sign_fake": (stats["loss/D_sign_fake"]
+                                          + stats_lib.moments(torch.sign(flg))),
+                    "loss/D_sign_real": (stats["loss/D_sign_real"]
+                                          + stats_lib.moments(torch.sign(rlg))),
+                    "loss/D_loss": stats["loss/D_loss"] + stats_lib.loss_moments(loss),
+                }
+            lrate = self._apply(self.opt_D, 1.0 / accum, self.D_lrate, self.D_warmup_steps)
+            stats["progress/D_lrate"] = stats_lib.scalar_moments(lrate)
+            return stats
 
     def update_r1(self, generator: torch.Generator, real_video: torch.Tensor,
                   gain: float = 1.0) -> dict:
-        assert self.r1_gamma is not None
-        accum = self.D_grad_accum
-        self.D.requires_grad_(True)
-        zero = torch.zeros(3, device=self.device)
-        stats = {k: zero for k in ("loss/r1_penalty", "loss/r1_loss")}
-        for video in self._chunks(real_video, accum):
-            loss, penalty = self.r1_micro_loss(generator, video)
-            loss.backward()
-            stats = {
-                "loss/r1_penalty": stats["loss/r1_penalty"] + stats_lib.moments(penalty),
-                "loss/r1_loss": stats["loss/r1_loss"] + stats_lib.loss_moments(loss),
-            }
-        self._apply(self.opt_D, gain / accum, self.D_lrate, self.D_warmup_steps)
-        return stats
+        with annotate("lvg.update_r1"):
+            assert self.r1_gamma is not None
+            accum = self.D_grad_accum
+            self.D.requires_grad_(True)
+            zero = torch.zeros(3, device=self.device)
+            stats = {k: zero for k in ("loss/r1_penalty", "loss/r1_loss")}
+            for video in self._chunks(real_video, accum):
+                loss, penalty = self.r1_micro_loss(generator, video)
+                loss.backward()
+                stats = {
+                    "loss/r1_penalty": stats["loss/r1_penalty"] + stats_lib.moments(penalty),
+                    "loss/r1_loss": stats["loss/r1_loss"] + stats_lib.loss_moments(loss),
+                }
+            self._apply(self.opt_D, gain / accum, self.D_lrate, self.D_warmup_steps)
+            return stats
 
     def update_G_ema(self) -> None:
-        beta = ema_beta_schedule(self.step, self.G_ema_beta, self.G_ema_warmup_steps)
-        lerp_trees(self.G_ema, self.G, 1.0 - beta)
-        self.step += 1
+        with annotate("lvg.update_G_ema"):
+            beta = ema_beta_schedule(self.step, self.G_ema_beta, self.G_ema_warmup_steps)
+            lerp_trees(self.G_ema, self.G, 1.0 - beta)
+            self.step += 1

@@ -41,6 +41,7 @@ from ..models.generator_sres import VideoGenerator
 from ..parallel import mesh
 from ..parallel.multihost import local_batch_size
 from ..utils.misc import assert_shape
+from ..utils.profiling import annotate
 from . import stats as stats_lib
 from .common import (Adam, collect_grads, ema_beta_schedule, lerp_trees, micro_loss, scrub_grads,
                      warmup_lrate)
@@ -216,113 +217,122 @@ class SuperResVideoGAN:
     def _apply(self, opt: Adam, gain: float, base_lrate: float, warmup_steps: int) -> float:
         """Scrub the accumulated gradients of `opt`'s parameters, clear
         them, and take one Adam step at the warmed-up learning rate."""
-        params = opt.params
-        # One mean over the processes, of the micro-batch loop's sums: JAX
-        # scrubs gradients that are already global means.
-        grads = scrub_grads(mesh.all_reduce_mean_(collect_grads(params)), gain=gain)
-        for p in params:
-            p.grad = None
-        lrate = warmup_lrate(base_lrate, self.step, warmup_steps)
-        opt.step(grads, lrate)
-        return lrate
+        with annotate("lvg.adam"):
+            params = opt.params
+            # One mean over the processes, of the micro-batch loop's sums: JAX
+            # scrubs gradients that are already global means.
+            grads = scrub_grads(mesh.all_reduce_mean_(collect_grads(params)), gain=gain)
+            for p in params:
+                p.grad = None
+            lrate = warmup_lrate(base_lrate, self.step, warmup_steps)
+            opt.step(grads, lrate)
+            return lrate
 
     def update_G(self, generator: torch.Generator, lr_video: torch.Tensor) -> dict:
-        assert_shape(lr_video, (self.local_batch, self.channels, self.context_seq_length,
-                                self.lr_height, self.lr_width))
-        lr_video = self._apply_in_augment(generator, lr_video)
-        accum = self.G_grad_accum
-        self.G.requires_grad_(True)
-        self.D.requires_grad_(False)
-        zero = torch.zeros(3, device=self.device)
-        stats = {k: zero for k in ("loss/G_score", "loss/G_sign", "loss/G_loss")}
-        for lr_chunk in self._chunks(lr_video, accum):
-            loss, logits = micro_loss(self.remat, self.G_micro_loss, generator, lr_chunk)
-            loss.backward()
-            stats = {
-                "loss/G_score": stats["loss/G_score"] + stats_lib.moments(logits),
-                "loss/G_sign": stats["loss/G_sign"] + stats_lib.moments(torch.sign(logits)),
-                "loss/G_loss": stats["loss/G_loss"] + stats_lib.loss_moments(loss),
-            }
-        self.D.requires_grad_(True)
-        lrate = self._apply(self.opt_G, 1.0 / accum, self.G_lrate, self.G_warmup_steps)
-        stats["progress/G_lrate"] = stats_lib.scalar_moments(lrate)
-        return stats
+        with annotate("lvg.update_G"):
+            assert_shape(lr_video, (self.local_batch, self.channels, self.context_seq_length,
+                                    self.lr_height, self.lr_width))
+            lr_video = self._apply_in_augment(generator, lr_video)
+            accum = self.G_grad_accum
+            self.G.requires_grad_(True)
+            self.D.requires_grad_(False)
+            zero = torch.zeros(3, device=self.device)
+            stats = {k: zero for k in ("loss/G_score", "loss/G_sign", "loss/G_loss")}
+            for lr_chunk in self._chunks(lr_video, accum):
+                loss, logits = micro_loss(self.remat, self.G_micro_loss, generator, lr_chunk)
+                loss.backward()
+                stats = {
+                    "loss/G_score": stats["loss/G_score"] + stats_lib.moments(logits),
+                    "loss/G_sign": stats["loss/G_sign"] + stats_lib.moments(torch.sign(logits)),
+                    "loss/G_loss": stats["loss/G_loss"] + stats_lib.loss_moments(loss),
+                }
+            self.D.requires_grad_(True)
+            lrate = self._apply(self.opt_G, 1.0 / accum, self.G_lrate, self.G_warmup_steps)
+            stats["progress/G_lrate"] = stats_lib.scalar_moments(lrate)
+            return stats
 
     def update_D(self, generator: torch.Generator, fake_lr_video: torch.Tensor,
                  real_lr_video: torch.Tensor, real_hr_video: torch.Tensor) -> dict:
-        assert_shape(fake_lr_video, (self.local_batch, self.channels, self.context_seq_length,
-                                     self.lr_height, self.lr_width))
-        assert_shape(real_hr_video, (self.local_batch, self.channels, self.seq_length,
-                                     self.hr_height, self.hr_width))
-        fake_lr_video = self._apply_in_augment(generator, fake_lr_video)
-        real_lr_video = self._apply_in_augment(generator, real_lr_video)
-        fake_lr_crop = self.crop_to_seq_length(fake_lr_video)
-        real_lr_crop = self.crop_to_seq_length(real_lr_video)
+        with annotate("lvg.update_D"):
+            assert_shape(fake_lr_video, (self.local_batch, self.channels, self.context_seq_length,
+                                         self.lr_height, self.lr_width))
+            assert_shape(real_hr_video, (self.local_batch, self.channels, self.seq_length,
+                                         self.hr_height, self.hr_width))
+            fake_lr_video = self._apply_in_augment(generator, fake_lr_video)
+            real_lr_video = self._apply_in_augment(generator, real_lr_video)
+            fake_lr_crop = self.crop_to_seq_length(fake_lr_video)
+            real_lr_crop = self.crop_to_seq_length(real_lr_video)
 
-        accum = self.D_grad_accum
-        self.D.requires_grad_(True)
-        names = ("loss/D_score_fake", "loss/D_score_real", "loss/D_sign_fake",
-                 "loss/D_sign_real", "loss/D_loss")
-        zero = torch.zeros(3, device=self.device)
-        stats = {k: zero for k in names}
-        for fl_ctx, fl, rl, rh in zip(*(self._chunks(v, accum) for v in (
-                fake_lr_video, fake_lr_crop, real_lr_crop, real_hr_video))):
-            with torch.no_grad():
-                z = self._draw_z(generator, fl_ctx.shape[0])
-                fh = self.G(fl_ctx, z=z, magnitude_ema_beta=self.G_magnitude_ema_beta)
-            loss, flg, rlg = micro_loss(self.remat, self.D_micro_loss, generator, fl, fh, rl, rh)
-            loss.backward()
-            stats = {
-                "loss/D_score_fake": stats["loss/D_score_fake"] + stats_lib.moments(flg),
-                "loss/D_score_real": stats["loss/D_score_real"] + stats_lib.moments(rlg),
-                "loss/D_sign_fake": stats["loss/D_sign_fake"] + stats_lib.moments(torch.sign(flg)),
-                "loss/D_sign_real": stats["loss/D_sign_real"] + stats_lib.moments(torch.sign(rlg)),
-                "loss/D_loss": stats["loss/D_loss"] + stats_lib.loss_moments(loss),
-            }
-        lrate = self._apply(self.opt_D, 1.0 / accum, self.D_lrate, self.D_warmup_steps)
-        # Feed the ADA controller the global batch's real-logit signs, so that
-        # every process moves ada_p alike.
-        self.sign_real_moments = self.sign_real_moments + mesh.all_reduce_sum_(
-            [stats["loss/D_sign_real"].clone()])[0]
-        stats["progress/D_lrate"] = stats_lib.scalar_moments(lrate)
-        return stats
+            accum = self.D_grad_accum
+            self.D.requires_grad_(True)
+            names = ("loss/D_score_fake", "loss/D_score_real", "loss/D_sign_fake",
+                     "loss/D_sign_real", "loss/D_loss")
+            zero = torch.zeros(3, device=self.device)
+            stats = {k: zero for k in names}
+            for fl_ctx, fl, rl, rh in zip(*(self._chunks(v, accum) for v in (
+                    fake_lr_video, fake_lr_crop, real_lr_crop, real_hr_video))):
+                with torch.no_grad():
+                    z = self._draw_z(generator, fl_ctx.shape[0])
+                    fh = self.G(fl_ctx, z=z, magnitude_ema_beta=self.G_magnitude_ema_beta)
+                loss, flg, rlg = micro_loss(self.remat, self.D_micro_loss, generator, fl, fh,
+                                            rl, rh)
+                loss.backward()
+                stats = {
+                    "loss/D_score_fake": stats["loss/D_score_fake"] + stats_lib.moments(flg),
+                    "loss/D_score_real": stats["loss/D_score_real"] + stats_lib.moments(rlg),
+                    "loss/D_sign_fake": (stats["loss/D_sign_fake"]
+                                          + stats_lib.moments(torch.sign(flg))),
+                    "loss/D_sign_real": (stats["loss/D_sign_real"]
+                                          + stats_lib.moments(torch.sign(rlg))),
+                    "loss/D_loss": stats["loss/D_loss"] + stats_lib.loss_moments(loss),
+                }
+            lrate = self._apply(self.opt_D, 1.0 / accum, self.D_lrate, self.D_warmup_steps)
+            # Feed the ADA controller the global batch's real-logit signs, so that
+            # every process moves ada_p alike.
+            self.sign_real_moments = self.sign_real_moments + mesh.all_reduce_sum_(
+                [stats["loss/D_sign_real"].clone()])[0]
+            stats["progress/D_lrate"] = stats_lib.scalar_moments(lrate)
+            return stats
 
     def update_r1(self, generator: torch.Generator, lr_video: torch.Tensor,
                   hr_video: torch.Tensor, gain: float = 1.0) -> dict:
-        assert self.r1_gamma is not None
-        assert_shape(lr_video, (self.local_batch, self.channels, self.seq_length,
-                                self.lr_height, self.lr_width))
-        lr_video = self._apply_in_augment(generator, lr_video)
-        accum = self.D_grad_accum
-        self.D.requires_grad_(True)
-        zero = torch.zeros(3, device=self.device)
-        stats = {k: zero for k in ("loss/r1_penalty", "loss/r1_loss")}
-        for lr, hr in zip(self._chunks(lr_video, accum), self._chunks(hr_video, accum)):
-            loss, penalty = self.r1_micro_loss(generator, lr, hr)
-            loss.backward()
-            stats = {
-                "loss/r1_penalty": stats["loss/r1_penalty"] + stats_lib.moments(penalty),
-                "loss/r1_loss": stats["loss/r1_loss"] + stats_lib.loss_moments(loss),
-            }
-        self._apply(self.opt_D, gain / accum, self.D_lrate, self.D_warmup_steps)
-        return stats
+        with annotate("lvg.update_r1"):
+            assert self.r1_gamma is not None
+            assert_shape(lr_video, (self.local_batch, self.channels, self.seq_length,
+                                    self.lr_height, self.lr_width))
+            lr_video = self._apply_in_augment(generator, lr_video)
+            accum = self.D_grad_accum
+            self.D.requires_grad_(True)
+            zero = torch.zeros(3, device=self.device)
+            stats = {k: zero for k in ("loss/r1_penalty", "loss/r1_loss")}
+            for lr, hr in zip(self._chunks(lr_video, accum), self._chunks(hr_video, accum)):
+                loss, penalty = self.r1_micro_loss(generator, lr, hr)
+                loss.backward()
+                stats = {
+                    "loss/r1_penalty": stats["loss/r1_penalty"] + stats_lib.moments(penalty),
+                    "loss/r1_loss": stats["loss/r1_loss"] + stats_lib.loss_moments(loss),
+                }
+            self._apply(self.opt_D, gain / accum, self.D_lrate, self.D_warmup_steps)
+            return stats
 
     @torch.no_grad()
     def update_ada(self, gain: float = 1.0) -> dict:
         """Move ada_p toward the real-logit-sign target."""
-        if self.augment_real_sign_target is None:
-            return {}
-        count, total = self.sign_real_moments[0], self.sign_real_moments[1]
-        mean_sign = torch.where(count > 0, total / torch.clamp(count, min=1.0),
-                                torch.zeros_like(total))
-        direction = torch.sign(mean_sign - self.augment_real_sign_target)
-        new_p = torch.clamp(self.ada_p + direction * self.augment_p_update_rate * gain,
-                            0.0, self.augment_p_max)
-        self.ada_p = torch.where(count > 0, new_p, self.ada_p)
-        self.sign_real_moments = torch.zeros(3, device=self.device)
-        return {"progress/augment_p": stats_lib.scalar_moments(self.ada_p)}
+        with annotate("lvg.update_ada"):
+            if self.augment_real_sign_target is None:
+                return {}
+            count, total = self.sign_real_moments[0], self.sign_real_moments[1]
+            mean_sign = torch.where(count > 0, total / torch.clamp(count, min=1.0),
+                                    torch.zeros_like(total))
+            direction = torch.sign(mean_sign - self.augment_real_sign_target)
+            new_p = torch.clamp(self.ada_p + direction * self.augment_p_update_rate * gain,
+                                0.0, self.augment_p_max)
+            self.ada_p = torch.where(count > 0, new_p, self.ada_p)
+            self.sign_real_moments = torch.zeros(3, device=self.device)
+            return {"progress/augment_p": stats_lib.scalar_moments(self.ada_p)}
 
     def update_G_ema(self) -> None:
-        beta = ema_beta_schedule(self.step, self.G_ema_beta, self.G_ema_warmup_steps)
-        lerp_trees(self.G_ema, self.G, 1.0 - beta)
-        self.step += 1
+        with annotate("lvg.update_G_ema"):
+            beta = ema_beta_schedule(self.step, self.G_ema_beta, self.G_ema_warmup_steps)
+            lerp_trees(self.G_ema, self.G, 1.0 - beta)
+            self.step += 1

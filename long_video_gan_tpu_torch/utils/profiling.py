@@ -7,7 +7,9 @@ in place of `jax.profiler`:
     CUDA activities) that writes a chrome trace under `dir` on exit;
   * `trace_op_times(dir)`: [(kernel name, device seconds)] from the newest
     chrome trace there; `categorize_op` and `print_op_summary` group them;
-  * `annotate(name)`: `torch.profiler.record_function`, a named span;
+  * `annotate(name)`: a named span (`torch.profiler.record_function`) while
+    a profiler records, else a shared no-op; `backward_span(prefix)` names
+    an autograd Function's backward span after the forward span it runs in;
   * `device_memory_stats()`, `peak_device_memory_gb()`: per-device
     allocated and peak bytes (empty on a CPU run); `host_memory_gb()`: RSS;
   * `module_summary(module, *args)`: per-submodule parameters and output
@@ -23,14 +25,59 @@ import glob
 import json
 import os
 import subprocess
+import threading
 import time
 from typing import Optional
 
 import torch
 
 
-def annotate(name: str):
-    return torch.profiler.record_function(name)
+# The no-op an unrecorded span returns, and the names of the spans open on
+# each thread (kept only while a profiler records).
+_OFF = contextlib.nullcontext()
+_open = threading.local()
+
+
+def annotate(name: Optional[str]):
+    """A span named `name` in the profiler's trace while a profiler records,
+    else (and for a None name) one shared no-op: closed, a span costs one
+    look at the profiler's state. The program's spans mark its layer
+    boundaries and are named `lvg.<layer>`."""
+    if name is None or not torch._C._autograd._profiler_enabled():
+        return _OFF
+    return _Span(name)
+
+
+class _Span:
+    """`torch.profiler.record_function(name)`, its name on this thread's
+    stack of open spans while it is open."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.record = torch.profiler.record_function(name)
+
+    def __enter__(self):
+        self.record.__enter__()
+        if not hasattr(_open, "names"):
+            _open.names = []
+        _open.names.append(self.name)
+        return self
+
+    def __exit__(self, *exc):
+        _open.names.pop()
+        return self.record.__exit__(*exc)
+
+
+def backward_span(prefix: str) -> Optional[str]:
+    """For an autograd Function's forward: the name of its backward's span,
+    `<span>.bwd` after the innermost span open on this thread whose name
+    starts with `prefix`. None where none is open, as always while no
+    profiler records. The backward runs on autograd's thread, where the
+    forward's spans are not open, so it names itself after them."""
+    for name in reversed(getattr(_open, "names", ())):
+        if name.startswith(prefix):
+            return f"{name}.bwd"
+    return None
 
 
 @contextlib.contextmanager
