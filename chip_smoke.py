@@ -6,8 +6,10 @@ instruction counts (K1/K2 in bf16; K3a/K3b and K4/K5, each type), holds each
 kernel against its plain version at every layer geometry its paths give it
 (K1 forward at generation, per-layer-table, training and metric size, 16 to
 512 frames, also against the f32 composed op up to 128; K2 backward at
-training size and, untimed, at the recompute phase's 128 frames; K3a
-forward at generation, per-layer-table and training size, K3b backward at
+training size and, untimed, at the recompute phase's 128 frames; the f32
+kernels K1f32 and K2f32, which `auto` runs on the f32 heads L0-L2 and
+counts apart, at the same sizes; K3a forward at generation,
+per-layer-table and training size, K3b backward at
 training size; K4 and K5 at generation size; K2 and K3b also at their own
 act' decisions, through their check-only builds that write U, on three
 seeded draws), with the
@@ -19,11 +21,11 @@ PIL, then drives each path through the entry points a user calls:
 
 - full-width two-stage generation through
   `long_video_gan_tpu_torch.generate.generate_video`, with the kernel policy
-  (`resample_impl="auto"`: K1) and with `resample_impl="fused"` (K3a);
+  (`resample_impl="auto"`: K1, K1f32) and with `resample_impl="fused"` (K3a);
 - full-width sres training steps through `train_sres.train_step`, with G on
-  "auto" (K1, K2) and on "fused" (K3a, K3b), each with a G micro-batch's
-  gradient checked against the plain path; generation from the trained
-  G_ema after a save/load round trip;
+  "auto" (K1, K2, K1f32, K2f32) and on "fused" (K3a, K3b), each with a G
+  micro-batch's gradient checked against the plain path; generation from the
+  trained G_ema after a save/load round trip;
 - K4 through `SynthesisLayer(resample_impl="pallas")` and K5 through its entry
   point `filtered_lrelu_pallas_v2`, at the full-width layers they serve;
 - the quality metrics through `metrics.metric_main.calc_metric` on the
@@ -44,7 +46,8 @@ PIL, then drives each path through the entry points a user calls:
 - the measurement tools at full width through their functions:
   `bench_train` (sres with K1/K2, lres) at its swept defaults,
   `scripts/torch_profile_train.py`'s phase table and `torch.profiler` trace
-  of one sres cycle (K1 and K2 counted in the trace as by the counters),
+  of one sres cycle (K1, K2, K1f32 and K2f32 counted in the trace as by the
+  counters),
   `scripts/torch_bench_layers.py`'s per-layer table on `auto` (K1) and
   `fused` (K3a) at 24 frames, and `scripts/torch_bench_prefetch.py` at
   prefetch 0, 1 and 2 (K1);
@@ -142,6 +145,8 @@ SEED = 0
 REPLACES = {
     "K1": "long_video_gan_tpu/ops/pallas/filtered_lrelu_packed.py:212",
     "K2": "long_video_gan_tpu/ops/pallas/filtered_lrelu_packed.py:305",
+    "K1f32": "long_video_gan_tpu/ops/pallas/filtered_lrelu_packed.py:212",
+    "K2f32": "long_video_gan_tpu/ops/pallas/filtered_lrelu_packed.py:305",
     "K3a": "long_video_gan_tpu/ops/pallas/filtered_lrelu_fused.py:194",
     "K3b": "long_video_gan_tpu/ops/pallas/filtered_lrelu_fused.py:277",
     "K4": "long_video_gan_tpu/ops/pallas/filtered_lrelu_kernel.py:117",
@@ -161,12 +166,15 @@ def rel_err(got, want) -> float:
 
 
 def counters():
-    """Kernel name -> (module, attribute) of its launch count."""
+    """Kernel name -> (module, attribute) of its launch count (K1f32/K2f32:
+    the f32 kernels, `selftest.F32_KERNELS`)."""
     from long_video_gan_tpu_torch.ops import (filtered_lrelu_cuda, filtered_lrelu_exact,
                                               filtered_lrelu_fused, filtered_lrelu_polyphase)
 
     return {"K1": (filtered_lrelu_cuda, "launches"),
             "K2": (filtered_lrelu_cuda, "bwd_launches"),
+            "K1f32": (filtered_lrelu_cuda, "f32_launches"),
+            "K2f32": (filtered_lrelu_cuda, "f32_bwd_launches"),
             "K3a": (filtered_lrelu_fused, "fwd_launches"),
             "K3b": (filtered_lrelu_fused, "bwd_launches"),
             "K4": (filtered_lrelu_exact, "launches"),
@@ -180,6 +188,22 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     return {name: getattr(module, attr) for name, (module, attr) in counters().items()}
+
+
+def auto_counts(forwards: int, backwards: int = 0) -> dict:
+    """The launches `auto` makes in `forwards` forward and `backwards`
+    backward passes of the full-width sres G: K1/K2 at the bf16 layers
+    L3-L13, K1f32/K2f32 at the f32 heads L0-L2."""
+    from long_video_gan_tpu_torch import selftest
+
+    layers = selftest.plan_layers()
+    out = {}
+    for fwd, bwd in (("K1", "K2"), ("K1f32", "K2f32")):
+        n = len(selftest.served_layers(fwd, layers))
+        out[fwd] = n * forwards
+        if backwards:
+            out[bwd] = n * backwards
+    return out
 
 
 def main(argv=None) -> int:
@@ -219,9 +243,10 @@ def main(argv=None) -> int:
     # 2. Build every kernel's library from the checkout's sources, one nvcc
     # each, all together.
     phase("build")
-    # K1 and K2 on the main path: the bf16 tensor-core source (their f32
-    # kernels serve the f32 checks only). K4 and K5 share one library.
+    # K1 and K2 on the bf16 layers: the tensor-core source; K1f32 and K2f32
+    # on the f32 heads: the f32 sources. K4 and K5 share one library.
     sources = {"K1": filtered_lrelu_cuda.TC_SOURCE, "K2": filtered_lrelu_cuda.TC_SOURCE,
+               "K1f32": filtered_lrelu_cuda.SOURCE, "K2f32": filtered_lrelu_cuda.BWD_SOURCE,
                "K3a": filtered_lrelu_fused.SOURCE, "K3b": filtered_lrelu_fused.SOURCE,
                "K4": filtered_lrelu_exact.SOURCE, "K5": filtered_lrelu_polyphase.SOURCE}
     libraries = (filtered_lrelu_cuda.tc_library, filtered_lrelu_cuda.library,
@@ -231,7 +256,7 @@ def main(argv=None) -> int:
     with ThreadPoolExecutor(len(libraries)) as pool:
         for future in [pool.submit(lib) for lib in libraries]:
             future.result()
-    print(f"built {', '.join(sorted(set(sources.values())))} and the f32 K1/K2 sources in "
+    print(f"built {', '.join(sorted(set(sources.values())))} in "
           f"{time.perf_counter() - t0:.2f} s")
     tensor_core_report()
 
@@ -256,6 +281,9 @@ def main(argv=None) -> int:
                                       (0, 3)),
                                      ("K2", (train_frames,), (0, 3)),
                                      ("K2", (remat_frames,), ()),
+                                     ("K1f32", (SEGMENT, LAYER_FRAMES, train_frames,
+                                                METRIC_LONG_FRAMES, METRIC_SUBSAMPLE_FRAMES), ()),
+                                     ("K2f32", (train_frames, remat_frames), ()),
                                      ("K3a", (SEGMENT, LAYER_FRAMES, train_frames), (3,)),
                                      ("K3b", (train_frames,), (3,)),
                                      ("K4", (SEGMENT,), EXACT_LAYERS),
@@ -265,20 +293,22 @@ def main(argv=None) -> int:
             # host) for K1 at the subsample metric's 512 frames and K2 at the
             # recompute phase's 128 (each in the layers' type only, untimed
             # for K2: the smaller sizes check the f32 kernel and the composed
-            # op), and for the first of K2's and K3b's GRADIENT_DRAWS.
+            # op), for the first of K2's and K3b's GRADIENT_DRAWS, and for
+            # the f32 kernels (K1f32, K2f32; their own generators leave the
+            # shared one's draws as they were).
             seed = {("K1", METRIC_SUBSAMPLE_FRAMES): SEED + 9, ("K2", remat_frames): SEED + 10,
                     ("K2", train_frames): SEED + 20, ("K3b", train_frames): SEED + 20}.get(
-                        (kernel, frames))
+                        (kernel, frames), {"K1f32": SEED + 30, "K2f32": SEED + 31}.get(kernel))
             only_type = (kernel, frames) in (("K1", METRIC_SUBSAMPLE_FRAMES), ("K2", remat_frames))
             phase(f"{kernel} vs plain, 144x256 plan, {frames} frames")
             checked.setdefault(kernel, {})[frames] = check_kernel(
                 layers, frames, device,
                 gen if seed is None else torch.Generator(device=device).manual_seed(seed), kernel,
                 () if only_type else f32_extra, vs_composed=kernel == "K1" and not only_type,
-                time_it=(kernel, frames) != ("K2", remat_frames))
-    # K2 and K3b at their own act' decisions on more seeded draws at training
-    # size, untimed: the pass must not hang on one draw.
-    for kernel in ("K2", "K3b"):
+                time_it=(kernel, frames) not in (("K2", remat_frames), ("K2f32", remat_frames)))
+    # K2 and K3b at their own act' decisions, and K2f32, on more seeded draws
+    # at training size, untimed: the pass must not hang on one draw.
+    for kernel in ("K2", "K3b", "K2f32"):
         for draw in range(1, GRADIENT_DRAWS):
             phase(f"{kernel} vs plain, 144x256 plan, {train_frames} frames, draw {draw + 1} "
                   f"of {GRADIENT_DRAWS}")
@@ -336,8 +366,7 @@ def main(argv=None) -> int:
     run_gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
     n_seg = FRAMES // SEGMENT
     launches = {}
-    launches["generate"] = generate_phase(lres_G, sres_G, run_gen, device,
-                                          {"K1": len(selftest.KERNEL_LAYERS) * n_seg})
+    launches["generate"] = generate_phase(lres_G, sres_G, run_gen, device, auto_counts(n_seg))
 
     # Warm timings of the two stages (host clock around synchronised work).
     lr_len = FRAMES + 2 * CONTEXT
@@ -383,13 +412,12 @@ def main(argv=None) -> int:
 
     # 7-8. Full-width sres training through the CLI's step, G on "auto", and
     # a G micro-batch's parameter gradients against the plain path.
-    n_layers = len(selftest.KERNEL_LAYERS)
     accum_G, accum_D = c["gan_kwargs"]["G_grad_accum"], c["gan_kwargs"]["D_grad_accum"]
     gan, batches, train_gen, launches["train"], end_to_end["auto s/step"] = train_phase(
         c, device, "auto", TRAIN_STEPS, checked, train_frames,
-        {"K1": TRAIN_STEPS * n_layers * (accum_G + accum_D),
-         "K2": TRAIN_STEPS * n_layers * accum_G})
-    grad_phase(gan, c, device, batches, train_gen, "auto", {"K2": n_layers})
+        auto_counts(TRAIN_STEPS * (accum_G + accum_D), TRAIN_STEPS * accum_G))
+    grad_phase(gan, c, device, batches, train_gen, "auto",
+               {k: n for k, n in auto_counts(0, 1).items() if k in ("K2", "K2f32")})
 
     # 9. Train to generate: save the trained G_ema, load it, generate.
     phase("trained G_ema: save_generator, load_generator, one 16-frame segment")
@@ -470,6 +498,7 @@ def main(argv=None) -> int:
         raise RuntimeError(f"the port imported the JAX side: {leaked[:5]}")
 
     names = {"K1": "filtered_lrelu_fwd", "K2": "filtered_lrelu_bwd",
+             "K1f32": "flrelu_f32_fwd", "K2f32": "flrelu_f32_bwd",
              "K3a": "filtered_lrelu_fused_fwd", "K3b": "filtered_lrelu_fused_bwd",
              "K4": "filtered_lrelu_exact", "K5": "filtered_lrelu_polyphase"}
     entries = []
@@ -531,12 +560,13 @@ def check_kernel(layers, frames: int, device, gen, kernel: str, f32_extra=(),
     indices = EXACT_LAYERS if kernel in ("K4", "K5") else served
     if not set(indices) <= set(served):
         raise RuntimeError(f"{kernel} does not serve layers {sorted(set(indices) - set(served))}")
+    entry = selftest.F32_KERNELS.get(kernel, kernel)   # K1f32/K2f32 run through K1/K2
     checks = [selftest.check_layer(layers[i][1], layers[i][0], frames,
                                    selftest.layer_dtype(layers[i][1]), device, gen,
                                    time_it=time_it,
-                                   kernel=kernel, vs_composed=vs_composed) for i in indices]
+                                   kernel=entry, vs_composed=vs_composed) for i in indices]
     checks += [selftest.check_layer(layers[i][1], layers[i][0], frames, torch.float32, device,
-                                    gen, kernel=kernel)
+                                    gen, kernel=entry)
                for i in f32_extra
                if i not in indices or selftest.layer_dtype(layers[i][1]) != torch.float32]
     by_name = dict(layers)
@@ -550,7 +580,7 @@ def check_kernel(layers, frames: int, device, gen, kernel: str, f32_extra=(),
                        f"(tol {selftest.K1_ULP_SHARE:g})")
         if c.beyond_half_ulp_rel_err is not None:
             timing += f" beyond half a bf16 ulp {c.beyond_half_ulp_rel_err:.2e} (tol {c.tol:g})"
-        if c.ms is not None and selftest.KERNELS[kernel].f32_arithmetic:
+        if c.ms is not None and selftest.KERNELS[entry].f32_arithmetic:
             # K4/K5 were priced at the f32 CUDA-core peak before they ran on
             # the tensor cores: that bound beside today's, once per layer.
             old, old_by = selftest.bound(by_name[c.name], frames, getattr(torch, c.dtype),
@@ -746,31 +776,38 @@ def synthetic_sres_batches(c: dict, device):
 
 # The wrapper function of each kernel that training and the tools launch.
 WRAPPED = {"K1": "filtered_lrelu_fwd_cuda", "K2": "filtered_lrelu_bwd_cuda",
+           "K1f32": "filtered_lrelu_fwd_cuda", "K2f32": "filtered_lrelu_bwd_cuda",
            "K3a": "fused_fwd_cuda", "K3b": "fused_bwd_cuda"}
 
 
 @contextlib.contextmanager
 def recorded_shapes(kernels):
     """Inside the block, record the output shape of every launch of each of
-    `kernels` (of WRAPPED); yields {kernel: set of shapes}."""
+    `kernels` (of WRAPPED; K1/K2 on bf16 maps, K1f32/K2f32 on f32 maps, the
+    same wrappers); yields {kernel: set of shapes}."""
+    import torch
+
     seen = {k: set() for k in kernels}
-    originals = {}
+    originals = []
     for kernel in kernels:
         module = counters()[kernel][0]
         fn = getattr(module, WRAPPED[kernel])
-        originals[kernel] = (module, fn)
+        originals.append((module, WRAPPED[kernel], fn))
+        dtype = {"K1": torch.bfloat16, "K2": torch.bfloat16, "K1f32": torch.float32,
+                 "K2f32": torch.float32}.get(kernel)
 
-        def recording(*args, _fn=fn, _shapes=seen[kernel], **kwargs):
+        def recording(*args, _fn=fn, _shapes=seen[kernel], _dtype=dtype, **kwargs):
             out = _fn(*args, **kwargs)
-            _shapes.add(tuple(out.shape))
+            if _dtype in (None, out.dtype):
+                _shapes.add(tuple(out.shape))
             return out
 
         setattr(module, WRAPPED[kernel], recording)
     try:
         yield seen
     finally:
-        for kernel, (module, fn) in originals.items():
-            setattr(module, WRAPPED[kernel], fn)
+        for module, name, fn in reversed(originals):
+            setattr(module, name, fn)
 
 
 def train_phase(c: dict, device, label: str, steps: int, checked: dict, train_frames: int,
@@ -1292,8 +1329,9 @@ def metrics_phase(device, checked: dict, data_root: str) -> tuple[dict, dict]:
     through the C3D on METRIC_UCF_ITEMS. The detectors have seeded random weights,
     are scripted to files and come back through `get_detector`. Each metric
     runs with the counts reset just before; raises unless its values are
-    finite, K1 launched 11 times per sres call (no other kernel) at the
-    shapes checked against its plain version, each detector's card features
+    finite, K1 launched 11 times and K1f32 3 times per sres call (no other
+    kernel) at the shapes checked against their plain versions, each
+    detector's card features
     (TF32 off) agree with the same module's on the CPU within DETECTOR_TOL
     of their max |.|, and the Fréchet distance of a stats set with itself
     is about 0. Also fvd2048_16f once more with TF32 off. Returns (the
@@ -1391,7 +1429,7 @@ def metrics_phase(device, checked: dict, data_root: str) -> tuple[dict, dict]:
             ("isv2048_ucf", dict(detector=specs["c3d"], max_items_override=METRIC_UCF_ITEMS))]
 
     # Time the two sides and the detectors through the functions calc_metric
-    # calls, and record the shape of every K1 output.
+    # calls, and record the shape of every K1 and K1f32 output.
     totals = {}
     k1_shapes = set()
     originals = {name: getattr(metric_main, name) for name in (
@@ -1457,10 +1495,10 @@ def metrics_phase(device, checked: dict, data_root: str) -> tuple[dict, dict]:
                   f"memory {peak_gib:.2f} GiB; launches {counts}")
             if not all(math.isfinite(v) for v in result["results"].values()):
                 raise RuntimeError(f"{label} is not finite: {result['results']}")
-            expected = {k: (11 * len(sres_inputs) if k == "K1" else 0) for k in counts}
+            expected = {k: auto_counts(len(sres_inputs)).get(k, 0) for k in counts}
             if counts != expected:
-                raise RuntimeError(f"{label} launched {counts}, expected 11 K1 per sres call "
-                                   f"({len(sres_inputs)} calls) and nothing else")
+                raise RuntimeError(f"{label} launched {counts}, expected 11 K1 and 3 K1f32 per "
+                                   f"sres call ({len(sres_inputs)} calls) and nothing else")
             for k, v in counts.items():
                 counts_sum[k] = counts_sum.get(k, 0) + v
     finally:
@@ -1482,11 +1520,13 @@ def metrics_phase(device, checked: dict, data_root: str) -> tuple[dict, dict]:
           f"events); peak "
           f"memory of the metric {peaks[sub]:.2f} GiB; {values[sub]}")
     per_clip[f"{sub} sres call s"], per_clip[f"{sub} peak GiB"] = call_s[sub][0], peaks[sub]
-    want = {k.shape for frames in checked["K1"].values() for k in frames[0] if k.ms is not None}
+    want = {k.shape for kernel in ("K1", "K1f32") for frames in checked[kernel].values()
+            for k in frames[0] if k.ms is not None}
     if not k1_shapes <= want:
-        raise RuntimeError(f"the metrics ran K1 at {sorted(k1_shapes - want)}, shapes not "
-                           f"checked against its plain version")
-    print(f"the metrics ran K1 at {len(k1_shapes)} shapes, each checked against plain above")
+        raise RuntimeError(f"the metrics ran K1/K1f32 at {sorted(k1_shapes - want)}, shapes not "
+                           f"checked against their plain versions")
+    print(f"the metrics ran K1 and K1f32 at {len(k1_shapes)} shapes, each checked against "
+          f"plain above")
     print(f"TF32 on fvd2048_16f: {values['fvd2048_16f']['fvd2048_16f']!r} with cuDNN's "
           f"TF32 default, {values['fvd2048_16f (TF32 off)']['fvd2048_16f']!r} without")
 
@@ -1746,8 +1786,8 @@ def tools_phase(device, checked: dict) -> tuple[dict, dict]:
     cycle (its chrome trace in a temporary directory), `torch_bench_layers`
     on LAYER_IMPLS, `torch_bench_prefetch` at PREFETCH_DEPTHS. Raises
     unless each launched exactly the kernels its work implies, only at
-    shapes checked above, the losses are finite, and the trace holds K1 and
-    K2 under their own categories as often as the counters say, in no more
+    shapes checked above, the losses are finite, and the trace holds K1, K2,
+    K1f32 and K2f32 under their own categories as often as the counters say, in no more
     device time than its wall time. Returns (the counts, the numbers)."""
     import torch
 
@@ -1758,7 +1798,6 @@ def tools_phase(device, checked: dict) -> tuple[dict, dict]:
 
     from long_video_gan_tpu_torch import bench_train, selftest
 
-    n_k1 = len(selftest.KERNEL_LAYERS)
     n_fused = len(selftest.served_layers("K3a", selftest.plan_layers()))
     numbers, total = {}, {k: 0 for k in counters()}
 
@@ -1770,8 +1809,7 @@ def tools_phase(device, checked: dict) -> tuple[dict, dict]:
     sres = bench_train.make_sres_bench(bench_train.DEFAULT_SRES_ACCUM, device=device)
     acc_g, acc_d = sres.gan.G_grad_accum, sres.gan.D_grad_accum
     cycles = len(bench_train.WARMUP_SEEDS) + BENCH_SRES_STEPS
-    record = run("bench_train sres", {"K1": n_k1 * (acc_g + acc_d) * cycles,
-                                      "K2": n_k1 * acc_g * cycles},
+    record = run("bench_train sres", auto_counts((acc_g + acc_d) * cycles, acc_g * cycles),
                  lambda: bench_train.measure(sres, BENCH_SRES_STEPS))
     print(json.dumps(record), flush=True)
     numbers["bench_train sres s/step"] = record["value"]
@@ -1779,24 +1817,24 @@ def tools_phase(device, checked: dict) -> tuple[dict, dict]:
     phase(f"measurement tools: torch_profile_train --config sres, {PROFILE_STEPS} call(s) "
           f"per phase, then a trace of one cycle")
     calls = 1 + PROFILE_STEPS
-    rows, step_s = run("phase timing", {"K1": n_k1 * (acc_g + acc_d) * calls,
-                                        "K2": n_k1 * acc_g * calls},
+    rows, step_s = run("phase timing", auto_counts((acc_g + acc_d) * calls, acc_g * calls),
                        lambda: torch_profile_train.time_phases(sres, PROFILE_STEPS))
     for r in rows:
         print(json.dumps(r))
     print(json.dumps({"config": "sres", **sres.record, "amortized_sec_per_step": step_s}))
-    expected = {"K1": n_k1 * (acc_g + acc_d), "K2": n_k1 * acc_g}
+    expected = auto_counts(acc_g + acc_d, acc_g)
     with tempfile.TemporaryDirectory() as tmp:
         traced = run("traced cycle", expected,
                      lambda: torch_profile_train.trace_cycle(sres, tmp, top=25))
-    in_trace = {"K1": traced["categories"].get("K1 filtered_lrelu fwd", (0.0, 0))[1],
-                "K2": traced["categories"].get("K2 filtered_lrelu bwd", (0.0, 0))[1]}
+    in_trace = {k: traced["categories"].get(f"{k} filtered_lrelu {way}", (0.0, 0))[1]
+                for k, way in (("K1", "fwd"), ("K2", "bwd"), ("K1f32", "fwd"), ("K2f32", "bwd"))}
     idle = 1 - traced["device_sec"] / traced["wall_sec"]
-    print(f"trace: K1 {in_trace['K1']}, K2 {in_trace['K2']} launches (counters {expected}); "
-          f"device {traced['device_sec']:.3f} s of {traced['wall_sec']:.3f} s traced wall "
-          f"(idle {idle:.1%})")
+    print(f"trace: {', '.join(f'{k} {n}' for k, n in in_trace.items())} launches (counters "
+          f"{expected}); device {traced['device_sec']:.3f} s of {traced['wall_sec']:.3f} s "
+          f"traced wall (idle {idle:.1%})")
     if in_trace != expected:
-        raise RuntimeError(f"the trace holds {in_trace} K1/K2 launches, the counters {expected}")
+        raise RuntimeError(f"the trace holds {in_trace} K1/K2/K1f32/K2f32 launches, the "
+                           f"counters {expected}")
     if traced["device_sec"] > traced["wall_sec"]:
         raise RuntimeError("the trace's device time exceeds its wall time")
     numbers["traced sres cycle device s"] = traced["device_sec"]
@@ -1817,7 +1855,7 @@ def tools_phase(device, checked: dict) -> tuple[dict, dict]:
     phase(f"measurement tools: torch_bench_layers, {LAYER_FRAMES} frames, "
           f"{', '.join(LAYER_IMPLS)}, {LAYER_ITERS} launches each")
     net = torch_bench_layers.plan_network(device)
-    layer_rows = run("per-layer table", {"K1": n_k1 * (1 + LAYER_ITERS),
+    layer_rows = run("per-layer table", {**auto_counts(1 + LAYER_ITERS),
                                          "K3a": n_fused * (1 + LAYER_ITERS)},
                      lambda: torch_bench_layers.bench_layers(
                          net, LAYER_FRAMES, LAYER_IMPLS, LAYER_ITERS,
@@ -1830,7 +1868,7 @@ def tools_phase(device, checked: dict) -> tuple[dict, dict]:
           f"{PREFETCH_SEGMENTS} segments, best of {PREFETCH_ITERS}")
     G, lr_video, z = torch_bench_prefetch.streaming_inputs(PREFETCH_SEGMENTS, SEGMENT, device)
     runs = 1 + len(PREFETCH_DEPTHS) * PREFETCH_ITERS
-    records = run("prefetch sweep", {"K1": n_k1 * PREFETCH_SEGMENTS * runs},
+    records = run("prefetch sweep", auto_counts(PREFETCH_SEGMENTS * runs),
                   lambda: torch_bench_prefetch.sweep(G, lr_video, z, SEGMENT, PREFETCH_DEPTHS,
                                                      PREFETCH_ITERS))
     for r in records:
@@ -1855,9 +1893,8 @@ def remat_phase(device, checked: dict) -> tuple[dict, dict]:
     finite. Returns (the counts, the numbers)."""
     import torch
 
-    from long_video_gan_tpu_torch import bench_train, selftest
+    from long_video_gan_tpu_torch import bench_train
 
-    n_k1 = len(selftest.KERNEL_LAYERS)
     cycles = REMAT_STEPS
     numbers, total = {}, {k: 0 for k in counters()}
     runs = (("sres", "block_remat", REMAT_SRES_ACCUM), ("lres", "block_remat", REMAT_LRES_ACCUM),
@@ -1869,7 +1906,7 @@ def remat_phase(device, checked: dict) -> tuple[dict, dict]:
         if kind == "sres":
             bench = bench_train.make_sres_bench(accum, device=device, **{option: True})
             g, d = bench.gan.G_grad_accum, bench.gan.D_grad_accum
-            expected = {"K1": n_k1 * (2 * g + d) * cycles, "K2": n_k1 * g * cycles}
+            expected = auto_counts((2 * g + d) * cycles, g * cycles)
         else:
             bench = bench_train.make_lres_bench(accum, device=device, **{option: True})
             expected = {}
@@ -1889,9 +1926,10 @@ def bench_phase() -> tuple[dict, dict]:
     BENCH_IMPLS, then `--selftest`, each in its own process on the card.
     Raises unless each bench prints exactly one JSON line on stdout, with
     finite positive frames/s in both protocols, 0 < mfu <= 1 and the same
-    tflop_per_frame across the impls, and its guard's line for the impl's
-    kernel, passing, on stderr (none on stdout); unless the kernel launched
-    once per served layer in every timed segment and no other kernel did;
+    tflop_per_frame across the impls, and its guard's lines for each kernel
+    the impl runs, passing, on stderr (none on stdout); unless each of those
+    kernels launched once per served layer in every timed segment and no
+    other kernel did;
     and unless --selftest exits 0 with every check passing (K2 and K3b at
     their own act' decisions). Returns (the timed calls' launches, the
     numbers)."""
@@ -1907,7 +1945,7 @@ def bench_phase() -> tuple[dict, dict]:
     launches, numbers, records = {k: 0 for k in counters()}, {}, {}
     t_phase = time.perf_counter()
     for impl in BENCH_IMPLS:
-        kernel, index = bench.GUARD[impl]
+        ran = [kernel for kernel, _ in bench.GUARD[impl]]
         t0 = time.perf_counter()
         run = subprocess.run([sys.executable, "-m", "long_video_gan_tpu_torch.bench", "--impl",
                               impl], cwd=root, capture_output=True, text=True,
@@ -1920,10 +1958,13 @@ def bench_phase() -> tuple[dict, dict]:
         if run.returncode != 0 or len(lines) != 1:
             raise RuntimeError(f"bench --impl {impl} exited {run.returncode} with {len(lines)} "
                                f"stdout lines; stderr ends {run.stderr[-3000:]}")
-        want_guard = f"guard: impl={impl} {kernel} {layers[index][0]} "
-        if len(guard) != 1 or not guard[0].startswith(want_guard) or not guard[0].endswith(" ok"):
-            raise RuntimeError(f"bench --impl {impl}: no passing guard of {kernel} at "
-                               f"{layers[index][0]} on stderr: {guard}")
+        want_guard = [f"guard: impl={impl} {kernel} {layers[index][0]} "
+                      for kernel, index in bench.GUARD[impl]]
+        if (len(guard) != len(want_guard) or not all(
+                line.startswith(want) and line.endswith(" ok")
+                for line, want in zip(guard, want_guard))):
+            raise RuntimeError(f"bench --impl {impl}: no passing guard lines {want_guard} on "
+                               f"stderr: {guard}")
         r = records[impl] = json.loads(lines[0])
         rates = (r["value"], r["per_segment_value"])
         if r["impl"] != impl or not all(math.isfinite(v) and v > 0 for v in rates):
@@ -1931,13 +1972,13 @@ def bench_phase() -> tuple[dict, dict]:
         if not 0 < r["mfu"] <= 1:
             raise RuntimeError(f"bench --impl {impl}: mfu {r['mfu']} outside (0, 1]")
         segments = r["iters"] * (r["chain"] + 1)
-        per_segment = len(selftest.served_layers(kernel, layers))
-        want = {k: per_segment * segments * r["batch"] if k == kernel else 0
-                for k in r["launches"]}
+        want = {k: len(selftest.served_layers(k, layers)) * segments * r["batch"] if k in ran
+                else 0 for k in r["launches"]}
         if r["launches"] != want:
             raise RuntimeError(f"bench --impl {impl} launched {r['launches']} in its timed "
                                f"calls, expected {want}")
-        launches[kernel] += r["launches"][kernel]
+        for k in ran:
+            launches[k] += r["launches"][k]
         numbers[f"bench {impl} frames/s"] = r["value"]
         numbers[f"bench {impl} per-segment frames/s"] = r["per_segment_value"]
         numbers[f"bench {impl} mfu"] = r["mfu"]

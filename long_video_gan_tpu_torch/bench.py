@@ -16,20 +16,21 @@ Three warm-up rounds of both come first (the first use builds the kernels);
 the times are the host clock around `--iters` calls of each, every call
 ending in its `.item()`.
 
-Before any timing, a guard holds the kernel that the timed impl runs to its
-plain version at the geometry where the TPU kernel once miscompiled silently
-(L3: 31x38 conv input, up 4, bf16, 8 frames): `auto` and `packed` run K1,
-`fused` K3a, `pallas` K4 (at L4: K4 cannot take L3's top crop); `conv` and
-`matrix` run no kernel and have no guard. Its lines go to stderr. If it
+Before any timing, a guard holds each kernel that the timed impl runs to
+its plain version, 8 frames: K1 and K3a at the geometry where the TPU kernel
+once miscompiled silently (L3: 31x38 conv input, up 4, bf16), K1f32 at L0
+(the first f32 head), K4 at L4 (K4 cannot take L3's top crop). `auto` and
+`packed` run K1 and K1f32, `fused` K3a, `pallas` K4; `conv` and `matrix` run
+no kernel and have no guard. Its lines, one a check, go to stderr. If it
 fails, stdout gets only the JSON line with `"value": null` and `"error":
 "kernel-selftest-failed"`, and the exit code is 1.
 
 `--selftest` runs the full sweep instead, the counterpart of
-`scripts/tpu_selftest.py`: K1/K2 (`packed`) and K3a/K3b (`fused`), forward
-and input gradient, at every 144x256 plan layer each serves, 24 frames,
-under `selftest`'s bars; then one 16-frame segment on `auto` and on `fused`
-against `matrix` (TF32 off), relative max-abs <= 0.05. Exit 0 if and only if
-all pass.
+`scripts/tpu_selftest.py`: K1/K2 and the f32 heads' K1f32/K2f32 (`packed`)
+and K3a/K3b (`fused`), forward and input gradient, at every 144x256 plan
+layer each serves, 24 frames, under `selftest`'s bars; then one 16-frame
+segment on `auto` and on `fused` against `matrix` (TF32 off), relative
+max-abs <= 0.05. Exit 0 if and only if all pass.
 
 Otherwise stdout carries exactly one JSON line: `metric`, `value`, `unit`,
 `chain`, `per_segment_value`, `mfu`, `device_kind`, `peak_hbm_gb`, then
@@ -73,10 +74,12 @@ IMPLS = ("auto", "conv", "matrix", "fused", "packed", "pallas")
 # The H100 SXM's dense bf16 peak (NVIDIA's data sheet, 700 W), FLOP/s.
 PEAK_FLOPS = selftest.PEAK_FLOPS[torch.bfloat16]
 WARMUP = 3
-# impl -> (the kernel it runs, the plan layer the guard checks it at).
-GUARD = {"auto": ("K1", 3), "packed": ("K1", 3), "fused": ("K3a", 3), "pallas": ("K4", 4)}
+# impl -> the kernels it runs, each with the plan layer the guard checks it
+# at: auto and packed run K1 on the bf16 layers and K1f32 on the f32 heads.
+GUARD = {"auto": (("K1", 3), ("K1f32", 0)), "packed": (("K1", 3), ("K1f32", 0)),
+         "fused": (("K3a", 3),), "pallas": (("K4", 4),)}
 GUARD_FRAMES = 8
-SELFTEST_KERNELS = ("K1", "K2", "K3a", "K3b")
+SELFTEST_KERNELS = ("K1", "K2", "K1f32", "K2f32", "K3a", "K3b")
 SELFTEST_FRAMES = 24
 MODEL_IMPLS = ("auto", "fused")   # each against "matrix" in the model check
 MODEL_TOL = 0.05                  # relative max-abs (scripts/tpu_selftest.py)
@@ -171,25 +174,31 @@ def flops_per_frame(G: VideoGenerator, segment: int = 16) -> float:
 
 
 def kernel_launches() -> dict[str, int]:
-    """The launch counts of the forward kernels a timed impl can run."""
-    return {"K1": filtered_lrelu_cuda.launches, "K3a": filtered_lrelu_fused.fwd_launches,
-            "K4": filtered_lrelu_exact.launches}
+    """The launch counts of the forward kernels a timed impl can run: K1 the
+    tensor-core kernel (bf16 layers), K1f32 the f32 kernel (the f32 head
+    layers under auto and packed)."""
+    return {"K1": filtered_lrelu_cuda.launches, "K1f32": filtered_lrelu_cuda.f32_launches,
+            "K3a": filtered_lrelu_fused.fwd_launches, "K4": filtered_lrelu_exact.launches}
 
 
 def guard(impl: str, device, frames: int = GUARD_FRAMES, log: TextIO = sys.stderr) -> bool:
-    """The kernel `impl` runs (GUARD) against its plain version at its guard
+    """Each kernel `impl` runs (GUARD) against its plain version at its guard
     layer of the 144x256 plan, in that layer's type, on `frames` frames of
-    inputs drawn on `device`; one line to `log`. True for an impl that runs
-    no kernel."""
+    inputs drawn on `device`; one line per check to `log`. True if every
+    check passes, and for an impl that runs no kernel."""
     if impl not in GUARD:
         print(f"guard: impl={impl} runs no kernel", file=log, flush=True)
         return True
-    kernel, index = GUARD[impl]
-    name, layer = selftest.plan_layers()[index]
-    check = selftest.check_layer(layer, name, frames, selftest.layer_dtype(layer), device,
-                                 torch.Generator(device).manual_seed(0), kernel=kernel)
-    print(f"guard: impl={impl} {selftest.describe(kernel, check)}", file=log, flush=True)
-    return check.ok
+    layers = selftest.plan_layers()
+    ok = True
+    for kernel, index in GUARD[impl]:
+        name, layer = layers[index]
+        check = selftest.check_layer(layer, name, frames, selftest.layer_dtype(layer), device,
+                                     torch.Generator(device).manual_seed(0),
+                                     kernel=selftest.F32_KERNELS.get(kernel, kernel))
+        print(f"guard: impl={impl} {selftest.describe(kernel, check)}", file=log, flush=True)
+        ok = ok and check.ok
+    return ok
 
 
 def run_selftest(device) -> bool:
@@ -203,7 +212,8 @@ def run_selftest(device) -> bool:
         for i in selftest.served_layers(kernel, layers):
             name, layer = layers[i]
             check = selftest.check_layer(layer, name, SELFTEST_FRAMES,
-                                         selftest.layer_dtype(layer), device, gen, kernel=kernel)
+                                         selftest.layer_dtype(layer), device, gen,
+                                         kernel=selftest.F32_KERNELS.get(kernel, kernel))
             print(selftest.describe(kernel, check), flush=True)
             ok, n = ok and check.ok, n + 1
     print(f"selftest: {'PASS' if ok else 'FAIL'} ({n} checks of {', '.join(SELFTEST_KERNELS)}, "
@@ -300,11 +310,12 @@ def main(argv: Optional[list[str]] = None) -> int:
         ok = run_model_selftest(device) and ok
         return 0 if ok else 1
     if not guard(args.impl, device):
-        kernel, index = GUARD[args.impl]
+        checked = ", ".join(f"{kernel} at L{index}" for kernel, index in GUARD[args.impl])
         print(json.dumps(_failure(
-            "kernel-selftest-failed", f"impl={args.impl}: {kernel} disagrees with its plain "
-                                      f"version at the L{index} guard geometry on this device; "
-                                      f"run --selftest for the full sweep")), flush=True)
+            "kernel-selftest-failed", f"impl={args.impl}: a kernel disagrees with its plain "
+                                      f"version at its guard geometry on this device ("
+                                      f"{checked}; stderr names it); run --selftest for the "
+                                      f"full sweep")), flush=True)
         return 1
 
     torch.cuda.reset_peak_memory_stats(device)

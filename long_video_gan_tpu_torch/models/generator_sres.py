@@ -7,7 +7,8 @@ pyramid. Frames fold into the batch axis ((n t) c h w). Half-precision layers
 run in bfloat16, as in the JAX package.
 
 Each SynthesisLayer's filtered_lrelu goes through `ops.filtered_lrelu` with the
-layer's `resample_impl`; "auto" sends the bf16 layers to the Hopper kernel.
+layer's `resample_impl`; "auto" sends every layer that resamples, bf16 and
+f32, to the Hopper kernels.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.filtered_lrelu import auto_impl_policy, filtered_lrelu
+from ..ops.filtered_lrelu import filtered_lrelu
 from ..ops.filters import design_lowpass_filter, kaiser_resample_filter
 from ..ops.upfirdn2d import (downsample2d, downsample2d_padding, upfirdn2d_macs,
                              upsample2d, upsample2d_padding)
@@ -234,13 +235,10 @@ class SynthesisLayer(nn.Module):
 
         gain = 1.0 if self.is_torgb else math.sqrt(2.0)
         slope = 1.0 if self.is_torgb else 0.2
-        impl = self.resample_impl
-        if impl == "auto":
-            impl = auto_impl_policy(self.up_factor, self.in_size[0] * self.in_size[1],
-                                    use_fp16=self.use_fp16)
         x = filtered_lrelu(x, fu=self.up_filter, fd=self.down_filter, b=self.bias.to(x.dtype),
                            up=self.up_factor, down=self.down_factor, padding=self.padding,
-                           gain=gain, slope=slope, clamp=self.conv_clamp, impl=impl)
+                           gain=gain, slope=slope, clamp=self.conv_clamp,
+                           impl=self.resample_impl)
         assert_shape(x, (None, self.out_channels, self.out_size[1], self.out_size[0]))
         assert x.dtype == dtype
         return x

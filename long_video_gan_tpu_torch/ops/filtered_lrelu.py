@@ -17,14 +17,26 @@ as in the JAX package:
   "conv", "matrix"  the composed path
   "packed"          K1 forward, K2 backward (`filtered_lrelu_cuda.py`; the
                     JAX package's lane-packed Pallas kernels), first-order
-                    differentiable, with the TPU kernel's bf16 stage rounding
-                    (`filtered_lrelu_bands.py`)
+                    differentiable, with the TPU kernel's stage rounding to
+                    the maps' type (`filtered_lrelu_bands.py`): bf16 maps on
+                    the tensor cores, f32 maps in f32 FMA
   "fused"           K3a forward, K3b backward (`filtered_lrelu_fused.py`; the
                     whole-image operator-product kernels), first-order
                     differentiable, with the TPU kernel's bf16 stage rounding
   "pallas"          K4 (`filtered_lrelu_exact.py`; the f32-exact kernel),
                     forward only; a top crop of `up` or more rows raises, where
                     the JAX kernel fails
+  "auto"            "packed", on every layer, bf16 and f32 (below)
+
+`auto` differs from the JAX package's, which keeps its f32 layers on the
+composed path ("matrix"), its choice on the v5e. On the H100 the composed path
+runs the f32 head layers L0-L2 of the sres plan as depthwise convolutions over
+the up^2-times-larger supersampled map in device memory: 9.99 ms of a
+16-frame segment against 0.72 ms on the f32 kernels, and the kernel was the
+faster route at every f32 layer of an all-f32 plan, forward and input
+gradient (`scripts/torch_bench_layers.py --num-fp16-res 0`; PERF.md). A CPU
+tensor takes the plain version in the wrapper, so the choice does not
+depend on the device here.
 
 For "packed" and "fused", identity resamples (up == down == 1 with 1-tap
 filters) and `flip_filter` take the composed path, as in the JAX package;
@@ -50,15 +62,6 @@ from .bias_act import bias_act
 from .upfirdn2d import Filter, filter_size, parse_padding, upfirdn2d
 
 
-def auto_impl_policy(up_factor: int, in_pixels: int, use_fp16: bool = True) -> str:
-    """Backend for `impl="auto"`: the kernel for every bf16 layer, the composed
-    path for the f32 head layers (the JAX package's policy on its measured
-    chip). A CPU tensor given "packed" takes the plain version in the wrapper,
-    so the choice does not depend on the device here."""
-    del up_factor, in_pixels
-    return "packed" if use_fp16 else "matrix"
-
-
 def filtered_lrelu(
     x: torch.Tensor,
     fu: Filter = None,
@@ -75,6 +78,8 @@ def filtered_lrelu(
 ) -> torch.Tensor:
     assert x.ndim == 4, f"expected NCHW input, got {tuple(x.shape)}"
     kw = dict(up=up, down=down, padding=padding, gain=gain, slope=slope, clamp=clamp)
+    if impl == "auto":
+        impl = "packed"
     if impl == "pallas":
         from .filtered_lrelu_exact import filtered_lrelu_exact
 

@@ -1,7 +1,8 @@
 """Wrappers of the Hopper filtered_lrelu kernels K1 (forward) and K2 (its
 input gradient), joined by a `torch.autograd.Function`: for bf16 maps the
-tensor-core kernels of csrc/filtered_lrelu_tc.cu, for f32 maps
-csrc/filtered_lrelu_fwd.cu and csrc/filtered_lrelu_bwd.cu.
+tensor-core kernels of csrc/filtered_lrelu_tc.cu, for f32 maps (the sres
+plan's head layers L0-L2 under `auto`) the f32-FMA kernels of
+csrc/filtered_lrelu_fwd.cu and csrc/filtered_lrelu_bwd.cu, tiled to the plane.
 
 Counterpart of `long_video_gan_tpu/ops/pallas/filtered_lrelu_packed.py`
 `filtered_lrelu_packed` and its `_packed_op` custom VJP; the function is the
@@ -16,7 +17,8 @@ autograd.
 A CUDA tensor launches the kernels or raises; a CPU tensor takes the plain
 versions, `banded_fwd_plain` and `banded_bwd_plain`. Nothing CUDA-specific is
 imported or built until the first launch. `launches` / `bwd_launches` count
-K1 / K2 launches of either type.
+the tensor-core K1 / K2 launches (bf16 maps), `f32_launches` /
+`f32_bwd_launches` those of the f32 kernels.
 """
 
 from __future__ import annotations
@@ -38,9 +40,12 @@ SOURCE = "long_video_gan_tpu_torch/csrc/filtered_lrelu_fwd.cu"
 BWD_SOURCE = "long_video_gan_tpu_torch/csrc/filtered_lrelu_bwd.cu"
 TC_SOURCE = "long_video_gan_tpu_torch/csrc/filtered_lrelu_tc.cu"
 
-# Kernel launches since the last reset (the caller sets them to 0).
+# Kernel launches since the last reset (the caller sets them to 0): the
+# tensor-core K1 / K2 on bf16 maps, and the f32 kernels.
 launches = 0
 bwd_launches = 0
+f32_launches = 0
+f32_bwd_launches = 0
 
 # The bf16 kernels' output (dX) tile edge. A 64-wide forward tile was slower
 # at 9 of the 11 bf16 layers of the 144x256 plan on the H100 (PERF.md).
@@ -350,7 +355,7 @@ def filtered_lrelu_fwd_cuda(x: torch.Tensor, fu: Filter, fd: Filter, up: int, do
                             clamp: Optional[float]) -> torch.Tensor:
     """Launch K1 on bias-added NCHW `x` (f32 or bf16, contiguous, on a CUDA
     device); returns a new tensor of the same dtype."""
-    global launches
+    global launches, f32_launches
     check_input(x, "tensor")
     geometry = kernel_geometry(x, fu, fd, up, down, padding)
     pad, out_h, out_w, taps, n_fu, n_fd = geometry
@@ -367,7 +372,10 @@ def filtered_lrelu_fwd_cuda(x: torch.Tensor, fu: Filter, fd: Filter, up: int, do
                 taps.data_ptr(), n_fu, n_fd, float(gain), float(slope),
                 math.inf if clamp is None else float(clamp), _stream(x))
     raise_on_error(lib, rc, "forward")
-    launches += 1
+    if x.dtype == torch.bfloat16:
+        launches += 1
+    else:
+        f32_launches += 1
     return y
 
 
@@ -376,7 +384,7 @@ def filtered_lrelu_bwd_cuda(x: torch.Tensor, dy: torch.Tensor, fu: Filter, fd: F
                             clamp: Optional[float]) -> torch.Tensor:
     """Launch K2: the gradient at bias-added NCHW `x` along `dy` (both of one
     dtype, contiguous, on one CUDA device); returns dx of x's dtype."""
-    global bwd_launches
+    global bwd_launches, f32_bwd_launches
     check_input(x, "input")
     geometry = kernel_geometry(x, fu, fd, up, down, padding)
     pad, out_h, out_w, taps, n_fu, n_fd = geometry
@@ -396,5 +404,8 @@ def filtered_lrelu_bwd_cuda(x: torch.Tensor, dy: torch.Tensor, fu: Filter, fd: F
                 math.inf if clamp is None else float(clamp), 0 if clamp is None else 1,
                 _stream(x))
     raise_on_error(lib, rc, "backward")
-    bwd_launches += 1
+    if x.dtype == torch.bfloat16:
+        bwd_launches += 1
+    else:
+        f32_bwd_launches += 1
     return dx

@@ -92,6 +92,11 @@ K2_OVER_SHARE = 1e-5
 # The bf16 layers of the 144x256 plan that launch K1/K2 (L14, ToRGB, is an
 # identity resample and takes the composed path).
 KERNEL_LAYERS = tuple(range(3, 14))
+# The f32 kernels (csrc/filtered_lrelu_{fwd,bwd}.cu, on the plan's f32 head
+# layers L0-L2 under "auto") under their own names, as their launch counters
+# keep them apart from the tensor-core K1/K2, and the KERNELS entry that runs
+# and checks each (the wrapper picks the kernel by dtype).
+F32_KERNELS = {"K1f32": "K1", "K2f32": "K2"}
 
 # Frames per slice of the plain reference: at a training micro-batch (64
 # frames) the reference of an up-4 layer would not fit the card at once.
@@ -187,7 +192,8 @@ def plan_layers(img_width: int = 256, img_height: int = 144, channel_max: int = 
 
 def served_layers(kernel: str, layers: list[tuple[str, SynthesisLayer]]) -> list[int]:
     """The plan layers whose filtered_lrelu runs `kernel` on its path: K1/K2
-    the bf16 layers that resample (impl "auto"); K3a/K3b every layer that
+    the bf16 layers that resample (impl "auto"); K1f32/K2f32 (F32_KERNELS)
+    the f32 layers that resample (impl "auto"); K3a/K3b every layer that
     resamples (impl "fused"); K4 every layer whose top padding the JAX kernel
     takes (py0 > -up); K5 those of K4 with up and down in {1, 2}."""
     out = []
@@ -197,6 +203,7 @@ def served_layers(kernel: str, layers: list[tuple[str, SynthesisLayer]]) -> list
                          and layer.down_filter is None)
         takes_padding = layer.padding[2] > -up
         if ((kernel in ("K1", "K2") and resamples and layer.use_fp16)
+                or (kernel in F32_KERNELS and resamples and not layer.use_fp16)
                 or (kernel in ("K3a", "K3b") and resamples)
                 or (kernel == "K4" and takes_padding)
                 or (kernel == "K5" and takes_padding and up <= 2 and down <= 2)):

@@ -119,8 +119,11 @@ def trace_op_times(trace_dir: str) -> list[tuple[str, float]]:
 
 
 # The port's own kernels by symbol, most specific first
-# (`csrc/filtered_lrelu_{tc,fused_tc,exact_tc,fwd,bwd}.cu`).
+# (`csrc/filtered_lrelu_{tc,fused_tc,exact_tc,fwd,bwd}.cu`; the last two
+# hold the f32 kernels, `flrelu_f32_{fwd,bwd}_kernel`).
 _PORT_KERNELS = (
+    ("flrelu_f32_fwd", "K1f32 filtered_lrelu fwd"),
+    ("flrelu_f32_bwd", "K2f32 filtered_lrelu bwd"),
     ("filtered_lrelu_fused_fwd", "K3a filtered_lrelu fused fwd"),
     ("filtered_lrelu_fused_bwd", "K3b filtered_lrelu fused bwd"),
     ("filtered_lrelu_exact", "K4 filtered_lrelu exact"),
@@ -132,9 +135,10 @@ _PORT_KERNELS = (
 
 def categorize_op(name: str) -> str:
     """Coarse category of a CUDA kernel name for trace summaries: the
-    port's K1-K5 by symbol, then the library kernels by family (cuDNN's
-    convolution kernels by their pass, PyTorch's own kernels before the
-    bare word "conv", which their template arguments may contain)."""
+    port's K1-K5 (and the f32 K1f32/K2f32) by symbol, then the library
+    kernels by family (cuDNN's convolution kernels by their pass, PyTorch's
+    own kernels before the bare word "conv", which their template arguments
+    may contain)."""
     n = name.lower()
     for symbol, category in _PORT_KERNELS:
         if symbol in n:

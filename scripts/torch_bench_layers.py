@@ -2,17 +2,28 @@
 GPU.
 
 For every layer of the 144x256 plan (`SynthesisNetwork` at w_dim 512,
-`num_fp16_res=4`), at `--segment` frames (a 16-frame segment with 2 x 4
-context is 24) in the layer's own type, it times (a) `modulated_conv2d` and
-(b) `filtered_lrelu` under each of `--impls` (`auto`: the layer's policy,
-K1 on the bf16 layers; `fused`: K3a; `conv`: the composed path; `pallas`:
-K4, on request). Times are CUDA events over `--iters` launches after a
-warm-up launch. Prints the card, a table and the totals. K4 refuses the top
-crops py0 <= -up (L3, L5, L7, L10, L13 of this plan); those cells read
-"n/a", and any other error raises.
+`--num-fp16-res` 4 by default; 0 puts every layer in f32), or those of
+`--layers`, at `--segment` frames (a 16-frame segment with 2 x 4 context is
+24) in the layer's own type, it times (a) `modulated_conv2d` and (b)
+`filtered_lrelu`, or with `--backward` its input gradient along a fixed dy,
+under each of `--impls`:
+
+  auto      the model's default, the same as packed
+  packed    the kernel route on every layer that resamples: K1/K2 on bf16
+            maps, csrc/filtered_lrelu_{fwd,bwd}.cu on f32 maps
+  fused     K3a (K3b)
+  conv      the composed path
+  pallas    K4, forward only, on request
+
+Times are CUDA events over `--iters` launches after a warm-up launch. Prints
+the card, a table and the totals. K4 refuses the top crops py0 <= -up (L3,
+L5, L7, L10, L13 of this plan) and any gradient; those cells read "n/a", and
+any other error raises.
 
     python3 scripts/torch_bench_layers.py
     python3 scripts/torch_bench_layers.py --impls auto,fused,pallas --iters 50
+    python3 scripts/torch_bench_layers.py --num-fp16-res 0 --impls conv,packed \
+        --segment 64 --backward --layers 0,1,2
     python3 scripts/torch_bench_layers.py --segment 1 --iters 1 --device cpu   # host clock
 """
 
@@ -31,8 +42,7 @@ import torch  # noqa: E402
 
 from long_video_gan_tpu_torch.models.generator_sres import (SynthesisNetwork,  # noqa: E402
                                                             modulated_conv2d)
-from long_video_gan_tpu_torch.ops.filtered_lrelu import (auto_impl_policy,  # noqa: E402
-                                                         filtered_lrelu)
+from long_video_gan_tpu_torch.ops.filtered_lrelu import filtered_lrelu  # noqa: E402
 from long_video_gan_tpu_torch.utils.misc import cli_device  # noqa: E402
 
 IMPLS = ("auto", "fused", "conv")
@@ -80,10 +90,7 @@ def time_ms(fn, iters: int, device: torch.device) -> float:
 
 
 def filtered_lrelu_of(layer, impl: str):
-    """The layer's filtered_lrelu call under `impl` ("auto": its policy)."""
-    if impl == "auto":
-        impl = auto_impl_policy(layer.up_factor, layer.in_size[0] * layer.in_size[1],
-                                use_fp16=layer.use_fp16)
+    """The layer's filtered_lrelu call under `impl`."""
 
     def run(x, b):
         return filtered_lrelu(x, layer.up_filter, layer.down_filter, b.to(x.dtype),
@@ -95,14 +102,34 @@ def filtered_lrelu_of(layer, impl: str):
     return run
 
 
-@torch.inference_mode()
+def _timed_call(run, x: torch.Tensor, b: torch.Tensor, backward: bool, randn):
+    """`run(x, b)`, or with `backward` its input gradient along a fixed dy."""
+    if not backward:
+        return lambda: run(x, b)
+    x = x.detach().requires_grad_(True)
+    with torch.enable_grad():
+        y = run(x, b)
+    dy = randn(*y.shape, dtype=y.dtype)
+    return lambda: torch.autograd.grad(y, x, dy, retain_graph=True)
+
+
 def bench_layers(net: SynthesisNetwork, frames: int, impls, iters: int,
-                 generator: torch.Generator) -> list[dict]:
-    """`layer_rows` with each layer's `conv_ms` and `flr_ms` {impl: ms, or
-    None where K4 refuses the layer's top crop}."""
+                 generator: torch.Generator, backward: bool = False,
+                 layers: Optional[list[int]] = None) -> list[dict]:
+    """`layer_rows` (of `layers`, default all) with each layer's `conv_ms`
+    and `flr_ms` {impl: ms, or None where K4 refuses the layer's top crop or
+    a gradient}; with `backward`, filtered_lrelu's input gradient."""
+    with torch.inference_mode(not backward):
+        return _bench_layers(net, frames, impls, iters, generator, backward, layers)
+
+
+def _bench_layers(net, frames, impls, iters, generator, backward, layers):
     device = net.layers[0].weight.device
+    chosen = range(len(net.layers)) if layers is None else layers
     rows = layer_rows(net)
-    for row, layer in zip(rows, net.layers):
+    rows = [dict(rows[i], index=i) for i in chosen]
+    for row in rows:
+        layer = net.layers[row["index"]]
         dtype = getattr(torch, row["dtype"])
 
         def randn(*shape, dtype=torch.float32):
@@ -111,19 +138,25 @@ def bench_layers(net: SynthesisNetwork, frames: int, impls, iters: int,
         x = randn(frames, row["in_channels"], *row["in_hw"], dtype=dtype)
         w = randn(row["out_channels"], row["in_channels"], row["kernel"], row["kernel"])
         s = randn(frames, row["in_channels"])
-        row["conv_ms"] = time_ms(lambda: modulated_conv2d(
-            x, w, s, demodulate=not layer.is_torgb, padding=row["kernel"] - 1), iters, device)
+        with torch.no_grad():
+            row["conv_ms"] = time_ms(lambda: modulated_conv2d(
+                x, w, s, demodulate=not layer.is_torgb, padding=row["kernel"] - 1), iters,
+                device)
         xc = randn(frames, row["out_channels"], *row["conv_hw"], dtype=dtype)
         b = randn(row["out_channels"])
         row["flr_ms"] = {}
         for impl in impls:
-            run = filtered_lrelu_of(layer, impl)
             try:
-                row["flr_ms"][impl] = time_ms(lambda: run(xc, b), iters, device)
+                fn = _timed_call(filtered_lrelu_of(layer, impl), xc, b, backward, randn)
+                row["flr_ms"][impl] = time_ms(fn, iters, device)
             except ValueError:
                 if not (impl == "pallas" and layer.padding[2] <= -layer.up_factor):
                     raise
                 row["flr_ms"][impl] = None   # K4's documented refusal
+            except NotImplementedError:
+                if not (impl == "pallas" and backward):
+                    raise
+                row["flr_ms"][impl] = None   # K4 is forward-only
     return rows
 
 
@@ -133,7 +166,7 @@ def print_table(rows: list[dict], impls) -> dict:
     print(f"{'L':>2} {'shape in':>14} {'ch':>9} {'up':>2} {'dn':>2} {'dt':>8} "
           f"{'conv ms':>8} " + " ".join(f"{('flr:' + i):>10}" for i in impls))
     totals = {"modulated_conv2d": 0.0, **{impl: 0.0 for impl in impls}}
-    for li, r in enumerate(rows):
+    for r in rows:
         totals["modulated_conv2d"] += r["conv_ms"]
         cells = ""
         for impl in impls:
@@ -141,7 +174,7 @@ def print_table(rows: list[dict], impls) -> dict:
             totals[impl] += ms or 0.0
             cells += f" {'n/a':>10}" if ms is None else f" {ms:10.3f}"
         h, w = r["in_hw"]
-        print(f"{li:>2} {h:>5}x{w:<6} {r['in_channels']:>4}->{r['out_channels']:<4} "
+        print(f"{r['index']:>2} {h:>5}x{w:<6} {r['in_channels']:>4}->{r['out_channels']:<4} "
               f"{r['up']:>2} {r['down']:>2} {r['dtype'][:4]:>8} {r['conv_ms']:8.3f}" + cells)
     print(f"\nconv total: {totals['modulated_conv2d']:.3f} ms")
     for impl in impls:
@@ -154,6 +187,11 @@ def main(argv=None) -> int:
     ap.add_argument("--impls", default=",".join(IMPLS))
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--segment", type=int, default=24, help="frames, context included")
+    ap.add_argument("--num-fp16-res", type=int, default=4,
+                    help="the plan's bf16 resolutions (0: every layer in f32)")
+    ap.add_argument("--backward", action="store_true",
+                    help="time filtered_lrelu's input gradient instead of its forward")
+    ap.add_argument("--layers", default=None, help="comma-separated layer indices (default all)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; without a CUDA device, pass cpu")
     args = ap.parse_args(argv)
@@ -162,8 +200,12 @@ def main(argv=None) -> int:
 
     print(gpu_name_and_power_limit(device) or "cpu (host clock)")
     impls = args.impls.split(",")
-    rows = bench_layers(plan_network(device), args.segment, impls, args.iters,
-                        torch.Generator().manual_seed(0))
+    layers = None if args.layers is None else [int(i) for i in args.layers.split(",")]
+    print(f"num_fp16_res {args.num_fp16_res}, {args.segment} frames, "
+          f"{'input gradient' if args.backward else 'forward'}")
+    rows = bench_layers(plan_network(device, num_fp16_res=args.num_fp16_res), args.segment,
+                        impls, args.iters, torch.Generator().manual_seed(0), args.backward,
+                        layers)
     print_table(rows, impls)
     return 0
 

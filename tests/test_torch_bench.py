@@ -6,6 +6,7 @@ every impl; its dense part against `FlopCounterMode`), the guard's
 impl -> kernel -> layer map, the timing protocol and the model check on the
 CPU's plain versions, and the CLI without CUDA."""
 
+import dataclasses
 import io
 import json
 import math
@@ -149,17 +150,20 @@ def test_resampler_macs_give_the_forward_shapes():
 
 def test_guard_map():
     """auto and packed guard K1, fused K3a, at L3 (31x38 conv input, up 4,
-    bf16); pallas K4 at L4, since K4 cannot take L3's crop; conv and matrix
-    run no kernel."""
-    assert bench.GUARD == {"auto": ("K1", 3), "packed": ("K1", 3), "fused": ("K3a", 3),
-                           "pallas": ("K4", 4)}
+    bf16), and auto and packed also K1f32 at L0 (f32); pallas K4 at L4,
+    since K4 cannot take L3's crop; conv and matrix run no kernel."""
+    assert bench.GUARD == {"auto": (("K1", 3), ("K1f32", 0)),
+                           "packed": (("K1", 3), ("K1f32", 0)),
+                           "fused": (("K3a", 3),), "pallas": (("K4", 4),)}
     assert set(bench.IMPLS) - set(bench.GUARD) == {"conv", "matrix"}
     layers = selftest.plan_layers()
     _, l3 = layers[3]
     assert (l3.in_size[1] + l3.kernel - 1, l3.in_size[0] + l3.kernel - 1) == (31, 38)
     assert l3.up_factor == 4 and selftest.layer_dtype(l3) == torch.bfloat16
-    for kernel, index in bench.GUARD.values():
-        assert index in selftest.served_layers(kernel, layers)
+    assert selftest.layer_dtype(layers[0][1]) == torch.float32
+    for checks in bench.GUARD.values():
+        for kernel, index in checks:
+            assert index in selftest.served_layers(kernel, layers)
     assert 3 not in selftest.served_layers("K4", layers)
 
 
@@ -168,8 +172,30 @@ def test_guard_writes_only_to_its_log(impl, capsys):
     log = io.StringIO()
     assert bench.guard(impl, torch.device("cpu"), frames=1, log=log)
     assert capsys.readouterr().out == ""
-    kernel = bench.GUARD.get(impl, ("runs no kernel",))[0]
-    assert kernel in log.getvalue() and log.getvalue().count("\n") == 1
+    kernels = [kernel for kernel, _ in bench.GUARD.get(impl, (("runs no kernel", None),))]
+    lines = log.getvalue().splitlines()
+    assert len(lines) == len(kernels) == log.getvalue().count("\n")
+    for line, kernel in zip(lines, kernels):
+        assert kernel in line
+
+
+@pytest.mark.parametrize("impl", ("auto", "packed"))
+def test_guard_checks_the_f32_kernel_too(impl, monkeypatch):
+    """auto and packed time K1 and K1f32, so the guard runs both checks, the
+    second on the f32 head L0 through K1's entry (the wrapper picks the f32
+    kernel by dtype), and fails if either does."""
+    seen = []
+    real = selftest.check_layer
+
+    def check_layer(layer, name, frames, dtype, *args, kernel, **kw):
+        seen.append((name, dtype, kernel))
+        check = real(layer, name, frames, dtype, *args, kernel=kernel, **kw)
+        return dataclasses.replace(check, ok=check.ok and dtype != torch.float32)
+
+    monkeypatch.setattr(selftest, "check_layer", check_layer)
+    layers = selftest.plan_layers()
+    assert not bench.guard(impl, torch.device("cpu"), frames=1, log=io.StringIO())
+    assert seen == [(layers[3][0], torch.bfloat16, "K1"), (layers[0][0], torch.float32, "K1")]
 
 
 def test_measure_and_model_selftest_on_the_cpu():
@@ -180,7 +206,7 @@ def test_measure_and_model_selftest_on_the_cpu():
     timed = bench.measure(G, lr, z, chain=2, iters=1, warmup=1)
     assert math.isfinite(timed["value"]) and timed["value"] > 0
     assert math.isfinite(timed["per_segment_value"]) and timed["per_segment_value"] > 0
-    assert timed["launches"] == {"K1": 0, "K3a": 0, "K4": 0}
+    assert timed["launches"] == {"K1": 0, "K1f32": 0, "K3a": 0, "K4": 0}
     log = io.StringIO()
     assert bench.run_model_selftest(torch.device("cpu"), segment=TINY_SEGMENT, log=log, **TINY)
     assert log.getvalue().count("ok") == len(bench.MODEL_IMPLS)

@@ -234,6 +234,21 @@ def test_bench_layers_runs_every_impl_at_a_tiny_width(capsys, one_torch_thread):
     assert "filtered_lrelu total [fused]" in capsys.readouterr().out
 
 
+def test_bench_layers_times_input_gradients_of_chosen_f32_layers(one_torch_thread):  # noqa: F811
+    """--num-fp16-res 0 --backward --layers: every layer in f32, only the
+    chosen ones timed, the input gradient under each impl (the plain
+    versions on the CPU; K4 has no gradient and reads n/a)."""
+    net = torch_bench_layers.plan_network("cpu", **dict(TINY_NET, num_fp16_res=0))
+    impls = ("auto", "packed", "conv", "pallas")
+    rows = torch_bench_layers.bench_layers(net, 1, impls, 1, torch.Generator().manual_seed(0),
+                                           backward=True, layers=[0, 2])
+    assert [r["index"] for r in rows] == [0, 2]
+    for row in rows:
+        assert row["dtype"] == "float32" and row["conv_ms"] > 0
+        assert row["flr_ms"]["pallas"] is None
+        assert all(row["flr_ms"][impl] > 0 for impl in impls[:-1]), row["flr_ms"]
+
+
 def test_bench_prefetch_sweep_at_a_tiny_width(one_torch_thread):  # noqa: F811
     G, lr_video, z = torch_bench_prefetch.streaming_inputs(2, 4, "cpu", **SRES_KW)
     assert lr_video.shape == (1, 3, 2 * 4 + 2 * 2, 9, 16)

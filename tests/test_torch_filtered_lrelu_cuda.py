@@ -51,7 +51,7 @@ def _inputs(dtype=torch.float32):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cpu_tensor_never_launches(impl, dtype):
     x, b = _inputs(dtype)
-    filtered_lrelu_cuda.launches = 0
+    filtered_lrelu_cuda.launches = filtered_lrelu_cuda.f32_launches = 0
     got = filtered_lrelu(x, FU, FU, b, up=2, down=2, padding=(9, 8, 9, 8), clamp=256.0,
                          impl=impl)
     kw = dict(up=2, down=2, padding=(9, 8, 9, 8), gain=2 ** 0.5, slope=0.2, clamp=256.0)
@@ -59,7 +59,7 @@ def test_cpu_tensor_never_launches(impl, dtype):
         want = filtered_lrelu_bands.banded_fwd_plain(x + b.reshape(1, -1, 1, 1), FU, FU, **kw)
     else:
         want = filtered_lrelu_composed(x, FU, FU, b, **kw)
-    assert filtered_lrelu_cuda.launches == 0
+    assert filtered_lrelu_cuda.launches == filtered_lrelu_cuda.f32_launches == 0
     assert got.dtype == dtype
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
@@ -90,6 +90,41 @@ def test_auto_policy_layer_on_cpu_takes_plain():
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+def test_auto_policy_sends_f32_layers_to_the_kernel_route():
+    """`auto` takes the kernel route on f32 layers too (the f32 kernels on
+    the card): an f32 SynthesisLayer on a CPU tensor computes the banded
+    plain version exactly, within f32 rounding of the composed path, and
+    launches nothing."""
+    kw = dict(LAYER_KW, use_fp16=False)
+    layer = SynthesisLayer(**kw, resample_impl="auto")
+    composed = SynthesisLayer(**kw, resample_impl="conv")
+    g = torch.Generator().manual_seed(4)
+    for p in layer.parameters():
+        p.data.copy_(torch.randn(p.shape, generator=g))
+    composed.load_state_dict(layer.state_dict())
+    x = torch.randn((2, 4, 10, 12), generator=g)
+    w = torch.randn((2, 8), generator=g)
+    seen = []
+    plain = filtered_lrelu_bands.banded_fwd_plain
+
+    def recording(xb, *args, **kwargs):
+        out = plain(xb, *args, **kwargs)
+        seen.append((xb, args, kwargs, out))
+        return out
+
+    _reset_counts()
+    with torch.no_grad(), pytest.MonkeyPatch.context() as mp:
+        mp.setattr(filtered_lrelu_bands, "banded_fwd_plain", recording)
+        got = layer(x, w)
+    want = composed(x, w)
+    assert _counts() == (0,) * 6 and _f32_counts() == (0, 0)
+    assert got.dtype == torch.float32 and len(seen) == 1
+    xb, args, kwargs, out = seen[0]
+    torch.testing.assert_close(got, out, rtol=0, atol=0)
+    torch.testing.assert_close(plain(xb, *args, **kwargs), out, rtol=0, atol=0)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
+
+
 def test_selftest_compares_in_reference_slices():
     """The on-card check computes its f32 reference REF_FRAMES frames at a
     time; on a CPU tensor (plain against plain) every slice, the last partial
@@ -104,6 +139,7 @@ def test_selftest_compares_in_reference_slices():
 
 def _reset_counts():
     filtered_lrelu_cuda.launches = filtered_lrelu_cuda.bwd_launches = 0
+    filtered_lrelu_cuda.f32_launches = filtered_lrelu_cuda.f32_bwd_launches = 0
     filtered_lrelu_fused.fwd_launches = filtered_lrelu_fused.bwd_launches = 0
     filtered_lrelu_exact.launches = filtered_lrelu_polyphase.launches = 0
 
@@ -112,6 +148,10 @@ def _counts():
     return (filtered_lrelu_cuda.launches, filtered_lrelu_cuda.bwd_launches,
             filtered_lrelu_fused.fwd_launches, filtered_lrelu_fused.bwd_launches,
             filtered_lrelu_exact.launches, filtered_lrelu_polyphase.launches)
+
+
+def _f32_counts():
+    return filtered_lrelu_cuda.f32_launches, filtered_lrelu_cuda.f32_bwd_launches
 
 
 ENTRIES = {
@@ -180,6 +220,8 @@ def test_selftest_bf16_bars_on_cpu(kernel):
 def test_served_layers_of_the_plan(plan_layers):
     served = {k: selftest.served_layers(k, plan_layers) for k in selftest.KERNELS}
     assert served["K1"] == served["K2"] == list(selftest.KERNEL_LAYERS)
+    assert {k: selftest.served_layers(k, plan_layers) for k in selftest.F32_KERNELS} == {
+        "K1f32": [0, 1, 2], "K2f32": [0, 1, 2]}
     assert served["K3a"] == served["K3b"] == list(range(14))
     assert served["K4"] == served["K5"] == [0, 1, 2, 4, 6, 8, 9, 11, 12, 14]
     # L10 at 16 frames: ~25 GFLOP, ~0.49 GB of bf16 maps. bf16 products at
@@ -400,12 +442,12 @@ def test_cpu_gradient_never_launches(dtype):
     x.requires_grad_(True)
     b.requires_grad_(True)
     kw = dict(up=2, down=2, padding=(9, 8, 9, 8), clamp=4.0)
-    filtered_lrelu_cuda.launches = filtered_lrelu_cuda.bwd_launches = 0
+    _reset_counts()
     y = filtered_lrelu(x, FU, FU, b, impl="packed", **kw)
     dy = torch.randn(y.shape, generator=torch.Generator().manual_seed(2)).to(dtype)
     got = torch.autograd.grad(y, [x, b], dy)
     want = torch.autograd.grad(filtered_lrelu(x, FU, FU, b, impl="fused", **kw), [x, b], dy)
-    assert filtered_lrelu_cuda.launches == filtered_lrelu_cuda.bwd_launches == 0
+    assert _counts() == (0,) * 6 and _f32_counts() == (0, 0)
     for g, w in zip(got, want):
         assert g.dtype == dtype
         torch.testing.assert_close(g, w, rtol=0, atol=0)
@@ -471,22 +513,22 @@ def test_kernel_matches_plain_f32(idx, cuda_device, plan_layers):
 @pytest.mark.cuda
 def test_kernel_counts_launches_and_skips_trivial(cuda_device):
     x = torch.randn((2, 3, 12, 16), device=cuda_device)
-    filtered_lrelu_cuda.launches = 0
+    _reset_counts()
     filtered_lrelu(x, FU, FU, None, up=2, down=2, padding=9, impl="packed")
-    assert filtered_lrelu_cuda.launches == 1
+    assert _f32_counts() == (1, 0) and filtered_lrelu_cuda.launches == 0
     filtered_lrelu(x, None, None, None, up=1, down=1, impl="packed")    # identity resample
     filtered_lrelu(x, FU, FU, None, up=2, down=2, padding=9, impl="conv")
-    assert filtered_lrelu_cuda.launches == 1
+    assert _f32_counts() == (1, 0) and filtered_lrelu_cuda.launches == 0
 
 
 @pytest.mark.cuda
 def test_kernel_refuses_gradient(cuda_device):
     """A first-order gradient runs K2; a second-order one is refused."""
     x = torch.randn((1, 2, 12, 16), device=cuda_device, requires_grad=True)
-    filtered_lrelu_cuda.bwd_launches = 0
+    _reset_counts()
     y = filtered_lrelu(x, FU, FU, None, up=2, down=2, padding=9, impl="packed")
     (g,) = torch.autograd.grad(y.square().sum(), x, create_graph=True)
-    assert filtered_lrelu_cuda.bwd_launches == 1
+    assert _f32_counts() == (1, 1) and filtered_lrelu_cuda.bwd_launches == 0
     with pytest.raises(NotImplementedError, match="first-order"):
         torch.autograd.grad(g.square().sum(), x)
     with torch.no_grad():
@@ -512,6 +554,67 @@ def test_bwd_kernel_matches_plain_f32(idx, cuda_device, plan_layers):
     check = selftest.check_layer(layer, name, TRAIN_FRAMES, torch.float32, cuda_device, gen,
                                  kernel="K2")
     assert check.ok, check
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,frames", [("K1", 16), ("K1", TRAIN_FRAMES), ("K2", 16),
+                                           ("K2", TRAIN_FRAMES)])
+@pytest.mark.parametrize("idx", [0, 1, 2])
+def test_f32_kernels_match_plain_at_the_heads(idx, kernel, frames, cuda_device, plan_layers):
+    """The f32 kernels at the head layers L0-L2 (31x38 maps, up 2: one block
+    a plane), at a segment's 16 frames and a training micro-batch's 64."""
+    name, layer = plan_layers[idx]
+    gen = torch.Generator().manual_seed(600 + idx)
+    check = selftest.check_layer(layer, name, frames, torch.float32, cuda_device, gen,
+                                 kernel=kernel)
+    assert check.ok, check
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+def test_f32_kernels_match_plain_on_a_large_plane(kernel, cuda_device):
+    """The f32 kernels on L10's 94x150 maps (up 4, a top crop) in f32: too
+    large for one block, so 32x32 tiles (16x16 for the backward), as before
+    the tile followed the plane."""
+    layer = selftest.plan_layers(num_fp16_res=0)[10][1]
+    gen = torch.Generator().manual_seed(610)
+    check = selftest.check_layer(layer, "L10", 2, torch.float32, cuda_device, gen,
+                                 kernel=kernel)
+    assert check.ok, check
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1, 13, 17), (1, 2, 38, 31), (2, 3, 31, 38),
+                                   (1, 1, 70, 33)])
+def test_f32_kernels_at_small_odd_and_tiled_planes(shape, cuda_device):
+    """The f32 kernels on planes that take one block each (13x17, 38x31, the
+    heads' 31x38) or several (70x33 passes the one-block budget: 32x32
+    tiles), against the plain versions."""
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn(shape, generator=g).to(cuda_device)
+    kw = dict(up=2, down=2, padding=9, gain=1.41, slope=0.2, clamp=4.0)
+    y = filtered_lrelu_cuda.filtered_lrelu_fwd_cuda(x, FU, FU, **kw)
+    dy = torch.randn(y.shape, generator=g).to(cuda_device)
+    dx = filtered_lrelu_cuda.filtered_lrelu_bwd_cuda(x, dy, FU, FU, **kw)
+    with selftest.tf32_off():
+        plain = (filtered_lrelu_bands.banded_fwd_plain(x, FU, FU, **kw),
+                 filtered_lrelu_bands.banded_bwd_plain(x, dy, FU, FU, **kw))
+    for got, want in zip((y, dx), plain):
+        err = (got - want).abs().max().item()
+        assert err <= selftest.TOLS[torch.float32] * want.abs().max().item(), err
+
+
+@pytest.mark.cuda
+def test_f32_launches_count_apart_from_k1_k2(cuda_device):
+    """f32 maps count in f32_launches / f32_bwd_launches and never in
+    launches / bwd_launches, which count the tensor-core K1 / K2 (bf16 maps)
+    alone: the benchmark reads those as K1's and K2's launches."""
+    for dtype, want in ((torch.float32, ((0, 0), (1, 1))), (torch.bfloat16, ((1, 1), (0, 0)))):
+        x = torch.randn((1, 2, 12, 16), device=cuda_device).to(dtype).requires_grad_(True)
+        _reset_counts()
+        y = filtered_lrelu(x, FU, FU, None, up=2, down=2, padding=9, impl="packed")
+        torch.autograd.grad(y.float().square().sum(), x)
+        assert _counts()[:2] == want[0] and _f32_counts() == want[1], dtype
 
 
 TENSOR_CORE_PAIRS = {

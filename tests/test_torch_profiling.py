@@ -31,6 +31,10 @@ from test_torch_generators import LRES_KW, SRES_KW
     ("filtered_lrelu_bwd_tc_kernel(__nv_bfloat16 const*, __nv_bfloat16 const*)",
      "K2 filtered_lrelu bwd"),
     ("filtered_lrelu_bwd_kernel(float const*, float const*, float*)", "K2 filtered_lrelu bwd"),
+    ("(anonymous namespace)::flrelu_f32_fwd_kernel(float const*, float*, float const*, "
+     "(anonymous namespace)::Geometry)", "K1f32 filtered_lrelu fwd"),
+    ("(anonymous namespace)::flrelu_f32_bwd_kernel(float const*, float const*, float*, "
+     "float const*, (anonymous namespace)::Geometry)", "K2f32 filtered_lrelu bwd"),
     ("void filtered_lrelu_fused_fwd_tc_kernel<__nv_bfloat16>(__nv_bfloat16 const*)",
      "K3a filtered_lrelu fused fwd"),
     ("void filtered_lrelu_fused_bwd_tc_kernel<float>(float const*, float const*)",

@@ -2,8 +2,9 @@
 
 Three workloads: `super_resolve` of two segments, two sres training cycles
 (R1 and ADA in the first) and one lres cycle, each on the `auto` policy, so
-that bf16 layers take K1/K2's plain versions and the f32 layers the composed
-path. With no profiler recording, none of them enters a
+that every layer that resamples takes the kernels' plain versions (K1/K2 on
+bf16 maps, the f32 kernels on f32 maps) and the 1x1 torgb the composed path.
+With no profiler recording, none of them enters a
 `torch.profiler.record_function`. Under one, the exported trace holds the
 spans a traced window counts: one `lvg.segment` per segment, one
 `lvg.layer.*` and one `lvg.filtered_lrelu.*` per layer and G call,
@@ -66,11 +67,11 @@ def _draw(seed, *shape):
 
 
 def _kernel_layers(net) -> list[str]:
-    """The layers `auto` sends to K1/K2: bf16 and resampling (the 1x1
-    torgb takes the composed path)."""
+    """The layers `auto` sends to the kernel route: every layer that
+    resamples, bf16 (K1/K2) and f32 (the f32 kernels); the 1x1 torgb takes
+    the composed path."""
     return [name for name, layer in zip(net.layer_names, net.layers)
-            if layer.use_fp16 and not (layer.up_factor == layer.down_factor == 1
-                                       and layer.up_filter is None)]
+            if not (layer.up_factor == layer.down_factor == 1 and layer.up_filter is None)]
 
 
 def _stream() -> tuple[dict, dict]:
