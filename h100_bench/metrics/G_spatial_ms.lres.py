@@ -1,0 +1,13 @@
+"""G_spatial_ms.lres: device milliseconds per cycle under the program's
+spans of G's four spatial blocks and ToRGB, `lvg.layer.spatial<i>`,
+`lvg.layer.to_rgb` and their `.bwd`: forward in every G call, backward in
+update_G. Nothing unless each span opened once per G call and its `.bwd`
+once per G micro-batch of update_G."""
+
+from h100_bench.drivers.train_lres import layer_ms
+
+NAMES = [f"lvg.layer.spatial{i}" for i in range(4)] + ["lvg.layer.to_rgb"]
+
+
+def read(ctx):
+    return layer_ms(ctx, NAMES)

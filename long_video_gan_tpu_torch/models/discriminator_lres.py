@@ -12,6 +12,9 @@ Every FIR (the blocks' spatial and temporal downsampling, the epilogue's
 its adjoint, and every dense conv through `ops.conv`, whose gradients of
 every order are cuDNN's three convolution kernels, so R1's second
 derivative runs the same kinds of convolution as the forward.
+While a profiler records, each block opens `lvg.layer.D.block<i>` and the
+epilogue `lvg.layer.D.epilogue`, each with its `.bwd` on autograd's thread
+where its input requires a gradient (`utils/profiling.layer_span`).
 Parameters are named as the JAX variables (`weight`, `_bias`; the lists
 `blocks`, `epilogue.conv1d` and `epilogue.linear` are the flax `name_N`
 submodules), so `io.convert_torch` maps a flax tree onto the state_dict.
@@ -31,7 +34,7 @@ from ..ops.conv import conv
 from ..ops.filters import binomial_filter
 from ..ops.upfirdn2d import downsample2d
 from ..utils.misc import assert_shape
-from ..utils.profiling import annotate
+from ..utils.profiling import annotate, layer_span
 from .common import FullyConnectedLayer, TemporalLinearDownsample, filter_buffer, randn_
 
 # ---------------------------------------------------------------------------
@@ -257,6 +260,6 @@ class VideoDiscriminator(nn.Module):
             px = (self.max_edge - videos.shape[4]) // 2
             py = (self.max_edge - videos.shape[3]) // 2
             feats = F.pad(videos, [px, px, py, py])
-            for block in self.blocks:
-                feats = block(feats)
-            return self.epilogue(feats)
+            for i, block in enumerate(self.blocks):
+                feats = layer_span(f"lvg.layer.D.block{i}", block, feats)
+            return layer_span("lvg.layer.D.epilogue", self.epilogue, feats)

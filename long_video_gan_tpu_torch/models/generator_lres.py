@@ -6,6 +6,12 @@ temporal latent. Modulation is applied to the activations and demodulation to
 the conv output, so each modulated conv3d is one dense `conv3d`. Magnitude
 EMAs are buffers; half-precision layers run in bfloat16, the others in their
 parameters' type (float32, or float64 in a `.double()` copy).
+
+While a profiler records, a G call opens `lvg.temporal_emb` (the blurred
+noise, the mapping and the latent's temporal downsampling) and one span a
+block, `lvg.layer.temporal<i>`, `lvg.layer.spatial<i>` and
+`lvg.layer.to_rgb`, each with its `.bwd` on autograd's thread where the
+block's input requires a gradient (`utils/profiling.layer_span`).
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ import torch.nn.functional as F
 from ..ops.bias_act import bias_act
 from ..ops.filters import design_kaiser_lowpass
 from ..utils.misc import assert_shape
-from ..utils.profiling import annotate
+from ..utils.profiling import annotate, layer_span
 from .common import (
     FullyConnectedLayer,
     MagnitudeEMA,
@@ -450,17 +456,17 @@ class VideoGenerator(nn.Module):
 
         x = (temporal_input[:, :, :, None, None] + self.spatial_input) * math.sqrt(0.5)
         remat = self.block_remat and torch.is_grad_enabled()
-        blocks = [*zip(self.temporal_layers, seq_lengths),
-                  *((layer, None) for layer in self.spatial_layers)]
-        for w_index, (layer, layer_len) in enumerate(blocks):
-            if remat:
-                block = functools.partial(layer, out_seq_length=layer_len, dtype=dtype)
-                updating = functools.partial(block, magnitude_ema_beta=magnitude_ema_beta)
-                x = checkpoint_block(updating, block, x, latent_ws[w_index])
-            else:
-                x = layer(x, latent_ws[w_index], magnitude_ema_beta, layer_len, dtype)
+        blocks = [*((f"temporal{i}", layer, layer_len) for i, (layer, layer_len)
+                    in enumerate(zip(self.temporal_layers, seq_lengths))),
+                  *((f"spatial{i}", layer, None) for i, layer in enumerate(self.spatial_layers))]
+        for w_index, (name, layer, layer_len) in enumerate(blocks):
+            block = functools.partial(layer, out_seq_length=layer_len, dtype=dtype)
+            updating = functools.partial(block, magnitude_ema_beta=magnitude_ema_beta)
+            call = functools.partial(checkpoint_block, updating, block) if remat else updating
+            x = layer_span(f"lvg.layer.{name}", call, x, latent_ws[w_index])
         w_index = len(blocks)
-        video = self.to_rgb(x, latent_ws[w_index], magnitude_ema_beta, dtype=dtype)
+        to_rgb = functools.partial(self.to_rgb, magnitude_ema_beta=magnitude_ema_beta, dtype=dtype)
+        video = layer_span("lvg.layer.to_rgb", to_rgb, x, latent_ws[w_index])
         return video.float() * self.output_scale
 
     def forward(self, batch_size: int, seq_length: int, magnitude_ema_beta: float = 1.0,
@@ -471,9 +477,10 @@ class VideoGenerator(nn.Module):
         injected white `noise` (shape `noise_shape(...)`) or noise drawn from
         `generator`."""
         with annotate("lvg.G"):
-            temporal_emb = self.sample_temporal_emb(batch_size, seq_length, noise=noise,
-                                                    generator=generator)
-            latent_ws = self.compute_latent_ws(temporal_emb, seq_length)
+            with annotate("lvg.temporal_emb"):
+                temporal_emb = self.sample_temporal_emb(batch_size, seq_length, noise=noise,
+                                                        generator=generator)
+                latent_ws = self.compute_latent_ws(temporal_emb, seq_length)
             in_len = self.compute_seq_lengths(seq_length)[0]
 
             w0 = latent_ws.pop(0)                                            # [N, w, T_in]

@@ -13,6 +13,12 @@ gradients is made of the three again (as StyleGAN's conv2d_gradfix does for 2D),
 every order runs cuDNN's forward, input-gradient and weight-gradient
 kernels. The values are those of `F.conv{1,2,3}d`; XLA differentiates the
 JAX package's convolutions the same way by construction.
+
+Each Function counts its calls (`fwd_calls`, `input_grad_calls`,
+`weight_grad_calls`, since the module was imported) and, while a profiler
+records, runs inside the span `lvg.conv.fwd`, `lvg.conv.input_grad` or
+`lvg.conv.weight_grad`, on the thread that calls it: autograd's for every
+gradient.
 """
 
 from __future__ import annotations
@@ -20,6 +26,14 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+
+from ..utils.profiling import annotate
+
+# Calls of each Function: the convolution, its input gradient, its weight
+# gradient, whatever order of derivative asked for them.
+fwd_calls = 0
+input_grad_calls = 0
+weight_grad_calls = 0
 
 
 def conv(x: torch.Tensor, w: torch.Tensor, padding: Sequence[int]) -> torch.Tensor:
@@ -57,10 +71,13 @@ class _Conv(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, padding):
+        global fwd_calls
+        fwd_calls += 1
         ctx.save_for_backward(x, w)
         ctx.padding = padding
-        return torch.ops.aten.convolution(x, w, None, _ones(padding), list(padding),
-                                          _ones(padding), False, _zeros(padding), 1)
+        with annotate("lvg.conv.fwd"):
+            return torch.ops.aten.convolution(x, w, None, _ones(padding), list(padding),
+                                              _ones(padding), False, _zeros(padding), 1)
 
     @staticmethod
     def backward(ctx, g):
@@ -79,9 +96,12 @@ class _ConvInputGrad(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, g, w, x_shape, padding):
+        global input_grad_calls
+        input_grad_calls += 1
         ctx.save_for_backward(g, w)
         ctx.padding = padding
-        return _input_grad(g, w, x_shape, padding)
+        with annotate("lvg.conv.input_grad"):
+            return _input_grad(g, w, x_shape, padding)
 
     @staticmethod
     def backward(ctx, ggx):
@@ -100,9 +120,12 @@ class _ConvWeightGrad(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, g, w_shape, padding):
+        global weight_grad_calls
+        weight_grad_calls += 1
         ctx.save_for_backward(x, g)
         ctx.padding = padding
-        return _weight_grad(x, g, w_shape, padding)
+        with annotate("lvg.conv.weight_grad"):
+            return _weight_grad(x, g, w_shape, padding)
 
     @staticmethod
     def backward(ctx, ggw):

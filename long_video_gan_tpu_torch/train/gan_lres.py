@@ -21,6 +21,11 @@ Beside what the JAX trainer does, written out for PyTorch:
     mean over the processes once per phase, the magnitude EMAs' global
     batch mean, the statistics' sums; every batch-leading draw is taken at
     the global batch size and sliced to the process's rows.
+
+While a profiler records, each phase opens `lvg.update_<phase>`, each
+optimizer step `lvg.adam`, and each D input's augmentations (DiffAugment
+and the temporal scale augment) `lvg.augment`, with its `.bwd` where the
+video requires a gradient (`utils/profiling.layer_span`).
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ from ..models.generator_lres import VideoGenerator
 from ..parallel import mesh
 from ..parallel.multihost import local_batch_size
 from ..utils.misc import assert_shape
-from ..utils.profiling import annotate
+from ..utils.profiling import annotate, layer_span
 from . import stats as stats_lib
 from .common import (Adam, collect_grads, ema_beta_schedule, lerp_trees, micro_loss,
                      random_temporal_crop, scrub_grads, temporal_scale_augment, warmup_lrate)
@@ -118,10 +123,14 @@ class LowResVideoGAN:
     def run_D(self, generator: Optional[torch.Generator], video: torch.Tensor) -> torch.Tensor:
         """DiffAugment, then the temporal-scale augment (if on), then D."""
         assert_shape(video, (None, self.channels, self.seq_length, self.height, self.width))
+        return self.D(layer_span("lvg.augment", self._augment, video, generator))
+
+    def _augment(self, video: torch.Tensor, generator: Optional[torch.Generator]
+                 ) -> torch.Tensor:
         video = diff_augment(video, self.diffaug_policy, generator)
         if self.temp_scale_augment > 0:
             video = temporal_scale_augment(video, self.temp_scale_augment, generator)
-        return self.D(video)
+        return video
 
     def generate(self, generator: Optional[torch.Generator], batch_size: int,
                  magnitude_ema_beta: float = 1.0, noise: Optional[torch.Tensor] = None

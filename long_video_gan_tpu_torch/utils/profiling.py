@@ -10,6 +10,8 @@ in place of `jax.profiler`:
   * `annotate(name)`: a named span (`torch.profiler.record_function`) while
     a profiler records, else a shared no-op; `backward_span(prefix)` names
     an autograd Function's backward span after the forward span it runs in;
+    `layer_span(name, fn, x)` spans a module call and, where `x` requires a
+    gradient, the call's backward as `<name>.bwd`;
   * `device_memory_stats()`, `peak_device_memory_gb()`: per-device
     allocated and peak bytes (empty on a CPU run); `host_memory_gb()`: RSS;
   * `module_summary(module, *args)`: per-submodule parameters and output
@@ -66,6 +68,47 @@ class _Span:
     def __exit__(self, *exc):
         _open.names.pop()
         return self.record.__exit__(*exc)
+
+
+def layer_span(name: str, fn, x: torch.Tensor, *args):
+    """`fn(x, *args)` inside the span `name` while a profiler records, else
+    `fn(x, *args)` alone. Where `x` requires a gradient, the call's backward
+    opens `<name>.bwd` on autograd's thread too: two identity autograd
+    Functions, one on the output and one on `x`, open it when the gradient
+    reaches the output and close it when it leaves `x`. The engine runs the
+    nodes made later first, so the nodes of the call run in between. The
+    span opens in one node's evaluation and closes in another's."""
+    if not torch._C._autograd._profiler_enabled():
+        return fn(x, *args)
+    with _Span(name):
+        marked = torch.is_grad_enabled() and x.requires_grad
+        if marked:
+            x = _BackwardSpanMark.apply(x, name, False)
+        out = fn(x, *args)
+        if marked:
+            out = _BackwardSpanMark.apply(out, name, True)
+    return out
+
+
+class _BackwardSpanMark(torch.autograd.Function):
+    """The identity; its backward opens (`opens`) or closes `<name>.bwd` on
+    the thread that runs it."""
+
+    @staticmethod
+    def forward(ctx, x, name, opens):
+        ctx.name, ctx.opens = name, opens
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not hasattr(_open, "marked"):
+            _open.marked = {}
+        stack = _open.marked.setdefault(ctx.name, [])
+        if ctx.opens:
+            stack.append(_Span(f"{ctx.name}.bwd").__enter__())
+        elif stack:
+            stack.pop().__exit__(None, None, None)
+        return g, None, None
 
 
 def backward_span(prefix: str) -> Optional[str]:

@@ -1,0 +1,146 @@
+"""The lres trainer's spans and `ops.conv`'s call counters on the CPU at
+`train_lres`'s tiny preset (batch 4 in two micro-batches, R1 every 2 steps).
+
+Under `torch.profiler`, one cycle at step 0 (G, D, R1, G_ema) opens
+`lvg.temporal_emb` and each G block's span once per G call (two in update_G,
+two in update_D) and each block's `.bwd` once per micro-batch of update_G;
+each D block and the epilogue once per D call, with a `.bwd` for every
+backward pass that runs through them from an input that requires a
+gradient; `lvg.augment` once per D call; `lvg.conv.*` once per `ops.conv`
+call. Every `.bwd` span that opens closes. The counters move in R1's double
+backward and not in G, which convolves through cuDNN directly. With no
+profiler recording, a cycle enters no `record_function`."""
+
+import collections
+import json
+
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from long_video_gan_tpu_torch.ops import conv
+from long_video_gan_tpu_torch.train_lres import build_config, make_gan, train_step
+from long_video_gan_tpu_torch.utils import profiling
+
+G_BLOCKS = [f"temporal{i}" for i in range(6)] + [f"spatial{i}" for i in range(4)] + ["to_rgb"]
+D_BLOCKS = [f"block{i}" for i in range(4)] + ["epilogue"]
+COUNTERS = ("fwd_calls", "input_grad_calls", "weight_grad_calls")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _trainer():
+    c = build_config("", 4, 2, 1.0, "tiny")
+    gan = make_gan(c, torch.device("cpu"))
+    gan.init_state(torch.Generator().manual_seed(0))
+    real = torch.randn((4, 3, c["seq_length"], c["height"], c["width"]),
+                       generator=torch.Generator().manual_seed(1)).clamp(-1, 1)
+    return c, gan, real
+
+
+def _counters() -> dict:
+    return {name: getattr(conv, name) for name in COUNTERS}
+
+
+def _moved(before: dict) -> dict:
+    return {name: getattr(conv, name) - before[name] for name in COUNTERS}
+
+
+@pytest.fixture(scope="module")
+def cycle(tmp_path_factory):
+    """Span counts of one profiled cycle at step 0, and the counters' moves
+    in each of its phases."""
+    c, gan, real = _trainer()
+    moves = {}
+    for name in ("update_G", "update_D", "update_r1"):
+        def counted(*args, name=name, method=getattr(gan, name), **kwargs):
+            before = _counters()
+            out = method(*args, **kwargs)
+            moves[name] = _moved(before)
+            return out
+        setattr(gan, name, counted)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        train_step(gan, torch.Generator().manual_seed(2), c, 0, iter([real, real]))
+    path = tmp_path_factory.mktemp("lres_spans") / "trace.json"
+    prof.export_chrome_trace(str(path))
+    spans = collections.Counter(
+        e["name"] for e in json.loads(path.read_text())["traceEvents"]
+        if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+        and e["name"].startswith("lvg."))
+    return spans, moves
+
+
+def test_generator_spans(cycle):
+    spans, _ = cycle
+    assert spans["lvg.G"] == spans["lvg.temporal_emb"] == 4
+    for block in G_BLOCKS:
+        assert spans[f"lvg.layer.{block}"] == 4, block
+        assert spans[f"lvg.layer.{block}.bwd"] == 2, block
+
+
+def test_discriminator_and_augment_spans(cycle):
+    """D runs 8 times: 2 in update_G, 2 x 2 in update_D, 2 in update_R1.
+    A first-order backward runs through a block from its input wherever that
+    requires a gradient: every D call of update_G and R1, and in update_D all
+    but block 0 (the clips require none). R1's second derivative runs once
+    more through the blocks that its zero gradients reach."""
+    spans, _ = cycle
+    assert spans["lvg.D"] == spans["lvg.augment"] == 8
+    assert spans["lvg.augment.bwd"] == 2 + 2 + 2
+    for block in D_BLOCKS:
+        first = 2 + 2 if block == "block0" else 2 + 4 + 2
+        assert spans[f"lvg.layer.D.{block}"] == 8, block
+        assert first <= spans[f"lvg.layer.D.{block}.bwd"] <= first + 2, block
+
+
+def test_every_backward_span_closes(cycle):
+    assert not any(getattr(profiling._open, "marked", {}).values())
+    assert not getattr(profiling._open, "names", [])
+
+
+def test_conv_spans_and_counters(cycle):
+    spans, moves = cycle
+    for kind, counter in (("fwd", "fwd_calls"), ("input_grad", "input_grad_calls"),
+                          ("weight_grad", "weight_grad_calls")):
+        assert spans[f"lvg.conv.{kind}"] == sum(m[counter] for m in moves.values()), kind
+    r1 = moves["update_r1"]
+    assert min(r1.values()) > 0
+    # Two D calls, then their first and second derivatives, all through ops.conv.
+    assert r1["weight_grad_calls"] > r1["fwd_calls"] // 2 and r1["fwd_calls"] > 0
+
+
+def test_counters_still_without_r1_or_d():
+    c, gan, real = _trainer()
+    before = _counters()
+    with torch.no_grad():
+        gan.generate(torch.Generator().manual_seed(3), 2)
+    gan.update_G_ema()
+    assert _moved(before) == dict.fromkeys(COUNTERS, 0)
+    calls = []
+    update_r1 = gan.update_r1
+    gan.update_r1 = lambda *a, **k: calls.append(1) or update_r1(*a, **k)
+    train_step(gan, torch.Generator().manual_seed(4), c, 1, iter([real]))
+    assert calls == []
+
+
+def test_no_span_without_a_profiler():
+    c, gan, real = _trainer()
+    entered = []
+    enter = torch.autograd.profiler.record_function.__enter__
+
+    def counting(self):
+        entered.append(self.name)
+        return enter(self)
+
+    torch.autograd.profiler.record_function.__enter__ = counting
+    try:
+        train_step(gan, torch.Generator().manual_seed(2), c, 0, iter([real, real]))
+    finally:
+        torch.autograd.profiler.record_function.__enter__ = enter
+    assert entered == []
