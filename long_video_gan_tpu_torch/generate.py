@@ -53,7 +53,13 @@ def super_resolve(sres_G: generator_sres.VideoGenerator, lr_video: torch.Tensor,
                   z: Optional[torch.Tensor] = None) -> Iterator[torch.Tensor]:
     """Stream the hr video of `lr_video` (which holds the context halo) in
     segments with one z per video (injected, or drawn from `generator`); the
-    last segment is cut to `num_frames` in all."""
+    last segment is cut to `num_frames` in all.
+
+    On a CUDA `lr_video` each segment is computed on the device's synthesis
+    stream (`generator_sres.sample_video_segments`), `prefetch` windows
+    ahead, and the consumer's current stream waits for that segment alone
+    when it is yielded: a `.cpu()` of it returns once it is done, without
+    waiting for the prefetched windows, which compute while it copies."""
     if z is None:
         z = torch.randn((lr_video.shape[0], sres_G.latent_z_dim), generator=generator,
                         device=generator.device)

@@ -499,7 +499,9 @@ class Generator(nn.Module):
 
         s = 1 + 2 * self.cond_context
         t_out = t - s + 1
-        idx = (torch.arange(t_out)[:, None] + torch.arange(s)[None, :]).to(cond.device)
+        # Made on the device: a copy from the host would wait for the stream.
+        idx = (torch.arange(t_out, device=cond.device)[:, None]
+               + torch.arange(s, device=cond.device)[None, :])
 
         plan = self.synthesis.plan()
         sizes_x, sizes_y = plan["sizes_x"], plan["sizes_y"]
@@ -602,6 +604,31 @@ class VideoGenerator(nn.Module):
             return self.SG3(z, lr_video, update_emas=update_emas, **kwargs)
 
 
+# Windows enqueued by `sample_video_segments` since the last reset (the
+# caller sets them to 0): on any device, and on a synthesis stream.
+segments = 0
+stream_segments = 0
+
+
+@functools.lru_cache(maxsize=None)
+def synthesis_stream(device_index: int) -> torch.cuda.Stream:
+    """The stream from PyTorch's pool on which `sample_video_segments`
+    synthesizes on CUDA device `device_index`: one per device, made on
+    first use."""
+    return torch.cuda.Stream(device_index)
+
+
+def _hand_over(segment: torch.Tensor, done: Optional[torch.cuda.Event]) -> torch.Tensor:
+    """`segment` with the consumer's current stream ordered after `done`,
+    the event of its window on the synthesis stream (None on the CPU), and
+    its block kept from reuse until that stream's later work on it ends."""
+    if done is not None:
+        consumer = torch.cuda.current_stream(segment.device)
+        consumer.wait_event(done)
+        segment.record_stream(consumer)
+    return segment
+
+
 def sample_video_segments(G: VideoGenerator, lr_video: torch.Tensor, segment_length: int = 8,
                           temporal_context: int = 4, z: Optional[torch.Tensor] = None,
                           generator: Optional[torch.Generator] = None, prefetch: int = 1,
@@ -610,13 +637,19 @@ def sample_video_segments(G: VideoGenerator, lr_video: torch.Tensor, segment_len
     segment_length + 2*context (stride segment_length), run the generator per
     window with the same z, yield hr segments.
 
-    CUDA launches are asynchronous, so `prefetch` windows are enqueued ahead
-    of the one being yielded: the device keeps synthesizing while the
-    consumer copies and encodes, and the consumer's `.cpu()` is the only
-    synchronisation. Each in-flight segment holds one hr segment plus its
-    synthesis workspace on the device. While a profiler records, each
-    window's enqueue is a span `lvg.segment`.
+    `prefetch` windows are enqueued ahead of the one being yielded, so the
+    device keeps synthesizing while the consumer copies and encodes. On a
+    CUDA `lr_video` every window is computed on the device's synthesis
+    stream (`synthesis_stream`), which first waits for the caller's current
+    stream; the consumer's current stream at each yield then waits for that
+    segment's window alone. So a consumer's `.cpu()` returns once its own
+    segment is done, not after the prefetched windows, and the copy runs
+    while the next window computes. On the CPU the windows run in turn.
+    Each in-flight segment holds one hr segment plus its synthesis
+    workspace on the device. While a profiler records, each window's
+    enqueue is a span `lvg.segment`.
     """
+    global segments, stream_segments
     n, c, t, h, w = lr_video.shape
     out_t = t - 2 * temporal_context
     assert out_t > 0 and out_t % segment_length == 0
@@ -625,12 +658,26 @@ def sample_video_segments(G: VideoGenerator, lr_video: torch.Tensor, segment_len
             raise ValueError("need z or a torch.Generator to draw it from")
         z = torch.randn((n, G.latent_z_dim), generator=generator,
                         device=generator.device).to(lr_video.device)
+    side = None
+    if lr_video.is_cuda:
+        side = synthesis_stream(lr_video.device.index)
+        side.wait_stream(torch.cuda.current_stream(lr_video.device))
+        # The caller may free these while the stream still reads them.
+        lr_video.record_stream(side)
+        z.record_stream(side)
     win = segment_length + 2 * temporal_context
     pending = collections.deque()
     for start in range(0, out_t, segment_length):
         with annotate("lvg.segment"):
-            pending.append(G(lr_video[:, :, start:start + win], z=z, **kwargs))
+            if side is None:
+                pending.append((G(lr_video[:, :, start:start + win], z=z, **kwargs), None))
+            else:
+                with torch.cuda.stream(side):
+                    segment = G(lr_video[:, :, start:start + win], z=z, **kwargs)
+                    pending.append((segment, side.record_event()))
+                stream_segments += 1
+        segments += 1
         while len(pending) > max(prefetch, 0):
-            yield pending.popleft()
+            yield _hand_over(*pending.popleft())
     while pending:
-        yield pending.popleft()
+        yield _hand_over(*pending.popleft())
