@@ -58,16 +58,15 @@ def _batches(kind: str, c: dict, device, global_batch: int):
 
 def train_state(gan) -> dict[str, torch.Tensor]:
     """Copies of the trainer's state: G, D and G_ema (parameters and
-    buffers: magnitude EMAs, w_avg), both Adam states, ada_p and ADA's sign
-    moments (sres)."""
+    buffers: magnitude EMAs, w_avg), both Adam states and the trainer's
+    `extra_state` (sres: ada_p and ADA's sign moments)."""
     out = {f"{name}.{k}": v.detach().clone() for name, m in
            (("G", gan.G), ("D", gan.D), ("G_ema", gan.G_ema)) for k, v in m.state_dict().items()}
     for name, opt in (("opt_G", gan.opt_G), ("opt_D", gan.opt_D)):
         for i, (mu, nu) in enumerate(zip(opt.mu, opt.nu)):
             out[f"{name}.mu.{i}"], out[f"{name}.nu.{i}"] = mu.clone(), nu.clone()
-    if hasattr(gan, "ada_p"):
-        out["ada_p"] = gan.ada_p.clone()
-        out["sign_real_moments"] = gan.sign_real_moments.clone()
+    for name in gan.extra_state:
+        out[name] = getattr(gan, name).clone()
     return out
 
 

@@ -37,21 +37,19 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 
-from ..models.common import init_weights_
 from ..models.diff_augment import diff_augment
 from ..models.discriminator_lres import VideoDiscriminator
 from ..models.generator_lres import VideoGenerator
 from ..parallel import mesh
-from ..parallel.multihost import local_batch_size
 from ..utils.misc import assert_shape
 from ..utils.profiling import annotate, layer_span
 from . import stats as stats_lib
-from .common import (Adam, collect_grads, ema_beta_schedule, lerp_trees, micro_loss,
-                     random_temporal_crop, scrub_grads, temporal_scale_augment, warmup_lrate)
+from .common import micro_loss, random_temporal_crop, temporal_scale_augment
+from .gan import GANTrainer
 
 
 @dataclass
-class LowResVideoGAN:
+class LowResVideoGAN(GANTrainer):
     seq_length: int
     height: int
     width: int
@@ -94,24 +92,6 @@ class LowResVideoGAN:
                                     device=self.device)
         self.G_ema = copy.deepcopy(self.G).requires_grad_(False)
         self.init_state(None)
-
-    @property
-    def local_batch(self) -> int:
-        """This process's share of `total_batch` (all of it in one process)."""
-        return local_batch_size(self.total_batch)
-
-    # ------------------------------------------------------------------ init
-
-    def init_state(self, generator: Optional[torch.Generator]) -> None:
-        """Draw G's and D's weights from `generator` (None leaves them as
-        built), copy G into G_ema, and reset the optimizers and the step."""
-        if generator is not None:
-            init_weights_(self.G, generator)
-            init_weights_(self.D, generator)
-        self.G_ema.load_state_dict(self.G.state_dict())
-        self.opt_G = Adam(self.G.parameters(), self.G_beta2, lrate=self.G_lrate)
-        self.opt_D = Adam(self.D.parameters(), self.D_beta2, lrate=self.D_lrate)
-        self.step = 0
 
     @property
     def gen_seq_length(self) -> int:
@@ -179,41 +159,21 @@ class LowResVideoGAN:
 
     # ------------------------------------------------------------------ steps
 
-    def _apply(self, opt: Adam, gain: float, base_lrate: float, warmup_steps: int) -> float:
-        """Scrub the accumulated gradients of `opt`'s parameters, clear
-        them, and take one Adam step at the warmed-up learning rate."""
-        with annotate("lvg.adam"):
-            params = opt.params
-            # One mean over the processes, of the micro-batch loop's sums: JAX
-            # scrubs gradients that are already global means.
-            grads = scrub_grads(mesh.all_reduce_mean_(collect_grads(params)), gain=gain)
-            for p in params:
-                p.grad = None
-            lrate = warmup_lrate(base_lrate, self.step, warmup_steps)
-            opt.step(grads, lrate)
-            return lrate
-
-    def _chunks(self, x: torch.Tensor, accum: int) -> tuple[torch.Tensor, ...]:
-        assert x.shape[0] % accum == 0, (x.shape, accum)
-        return x.split(x.shape[0] // accum)
-
     def update_G(self, generator: torch.Generator) -> dict:
         with annotate("lvg.update_G"):
             accum = self.G_grad_accum
             micro = self.local_batch // accum
             self.G.requires_grad_(True)
             self.D.requires_grad_(False)
-            zero = torch.zeros(3, device=self.device)
-            stats = {k: zero for k in ("loss/G_score", "loss/G_sign", "loss/G_loss")}
+            stats = None
             try:
                 for _ in range(accum):
                     loss, logits = micro_loss(self.remat, self.G_micro_loss, generator, micro)
                     loss.backward()
-                    stats = {
-                        "loss/G_score": stats["loss/G_score"] + stats_lib.moments(logits),
-                        "loss/G_sign": stats["loss/G_sign"] + stats_lib.moments(torch.sign(logits)),
-                        "loss/G_loss": stats["loss/G_loss"] + stats_lib.loss_moments(loss),
-                    }
+                    stats = stats_lib.accumulate(stats, {
+                        "loss/G_score": stats_lib.moments(logits),
+                        "loss/G_sign": stats_lib.moments(torch.sign(logits)),
+                        "loss/G_loss": stats_lib.loss_moments(loss)})
             finally:
                 self.D.requires_grad_(True)
             lrate = self._apply(self.opt_G, 1.0 / accum, self.G_lrate, self.G_warmup_steps)
@@ -226,25 +186,19 @@ class LowResVideoGAN:
                                       self.height, self.width))
             accum = self.D_grad_accum
             self.D.requires_grad_(True)
-            names = ("loss/D_score_fake", "loss/D_score_real", "loss/D_sign_fake",
-                     "loss/D_sign_real", "loss/D_loss")
-            zero = torch.zeros(3, device=self.device)
-            stats = {k: zero for k in names}
+            stats = None
             for real in self._chunks(real_video, accum):
                 # Each micro-batch's fakes, moving G's magnitude EMAs in place.
                 with torch.no_grad():
                     fake = self.generate(generator, real.shape[0], self.G_magnitude_ema_beta)
                 loss, flg, rlg = micro_loss(self.remat, self.D_micro_loss, generator, fake, real)
                 loss.backward()
-                stats = {
-                    "loss/D_score_fake": stats["loss/D_score_fake"] + stats_lib.moments(flg),
-                    "loss/D_score_real": stats["loss/D_score_real"] + stats_lib.moments(rlg),
-                    "loss/D_sign_fake": (stats["loss/D_sign_fake"]
-                                          + stats_lib.moments(torch.sign(flg))),
-                    "loss/D_sign_real": (stats["loss/D_sign_real"]
-                                          + stats_lib.moments(torch.sign(rlg))),
-                    "loss/D_loss": stats["loss/D_loss"] + stats_lib.loss_moments(loss),
-                }
+                stats = stats_lib.accumulate(stats, {
+                    "loss/D_score_fake": stats_lib.moments(flg),
+                    "loss/D_score_real": stats_lib.moments(rlg),
+                    "loss/D_sign_fake": stats_lib.moments(torch.sign(flg)),
+                    "loss/D_sign_real": stats_lib.moments(torch.sign(rlg)),
+                    "loss/D_loss": stats_lib.loss_moments(loss)})
             lrate = self._apply(self.opt_D, 1.0 / accum, self.D_lrate, self.D_warmup_steps)
             stats["progress/D_lrate"] = stats_lib.scalar_moments(lrate)
             return stats
@@ -255,20 +209,12 @@ class LowResVideoGAN:
             assert self.r1_gamma is not None
             accum = self.D_grad_accum
             self.D.requires_grad_(True)
-            zero = torch.zeros(3, device=self.device)
-            stats = {k: zero for k in ("loss/r1_penalty", "loss/r1_loss")}
+            stats = None
             for video in self._chunks(real_video, accum):
                 loss, penalty = self.r1_micro_loss(generator, video)
                 loss.backward()
-                stats = {
-                    "loss/r1_penalty": stats["loss/r1_penalty"] + stats_lib.moments(penalty),
-                    "loss/r1_loss": stats["loss/r1_loss"] + stats_lib.loss_moments(loss),
-                }
+                stats = stats_lib.accumulate(stats, {
+                    "loss/r1_penalty": stats_lib.moments(penalty),
+                    "loss/r1_loss": stats_lib.loss_moments(loss)})
             self._apply(self.opt_D, gain / accum, self.D_lrate, self.D_warmup_steps)
             return stats
-
-    def update_G_ema(self) -> None:
-        with annotate("lvg.update_G_ema"):
-            beta = ema_beta_schedule(self.step, self.G_ema_beta, self.G_ema_warmup_steps)
-            lerp_trees(self.G_ema, self.G, 1.0 - beta)
-            self.step += 1

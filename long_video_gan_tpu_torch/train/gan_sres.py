@@ -35,20 +35,18 @@ import torch
 import torch.nn.functional as F
 
 from ..models.ada_augment import AugmentPipe
-from ..models.common import init_weights_
 from ..models.discriminator_sres import VideoDiscriminator
 from ..models.generator_sres import VideoGenerator
 from ..parallel import mesh
-from ..parallel.multihost import local_batch_size
 from ..utils.misc import assert_shape
 from ..utils.profiling import annotate
 from . import stats as stats_lib
-from .common import (Adam, collect_grads, ema_beta_schedule, lerp_trees, micro_loss, scrub_grads,
-                     warmup_lrate)
+from .common import micro_loss
+from .gan import GANTrainer
 
 
 @dataclass
-class SuperResVideoGAN:
+class SuperResVideoGAN(GANTrainer):
     seq_length: int
     temporal_context: int
     lr_height: int
@@ -91,6 +89,8 @@ class SuperResVideoGAN:
 
     device: Any = None
 
+    extra_state = ("ada_p", "sign_real_moments")
+
     def __post_init__(self):
         self.device = torch.device(self.device if self.device is not None else "cpu")
         self.context_seq_length = self.seq_length + 2 * self.temporal_context
@@ -119,25 +119,13 @@ class SuperResVideoGAN:
                 margin_frac=self.in_augment_margin_frac)
         self.init_state(None)
 
-    @property
-    def local_batch(self) -> int:
-        """This process's share of `total_batch` (all of it in one process)."""
-        return local_batch_size(self.total_batch)
-
     # ------------------------------------------------------------------ init
 
     def init_state(self, generator: Optional[torch.Generator]) -> None:
-        """Draw G's and D's weights from `generator` (None leaves them as
-        built), copy G into G_ema, and reset the optimizers, ADA and step."""
-        if generator is not None:
-            init_weights_(self.G, generator)
-            init_weights_(self.D, generator)
-        self.G_ema.load_state_dict(self.G.state_dict())
-        self.opt_G = Adam(self.G.parameters(), self.G_beta2, lrate=self.G_lrate)
-        self.opt_D = Adam(self.D.parameters(), self.D_beta2, lrate=self.D_lrate)
+        """`GANTrainer.init_state`, and ADA's p and real-sign moments reset."""
+        super().init_state(generator)
         self.ada_p = torch.tensor(self.augment_p_init, dtype=torch.float32, device=self.device)
         self.sign_real_moments = torch.zeros(3, device=self.device)
-        self.step = 0
 
     # ------------------------------------------------------------------ run_D
 
@@ -177,10 +165,6 @@ class SuperResVideoGAN:
                                                       generator=generator,
                                                       device=generator.device), n).to(self.device)
 
-    def _chunks(self, x: torch.Tensor, accum: int) -> tuple[torch.Tensor, ...]:
-        assert x.shape[0] % accum == 0, (x.shape, accum)
-        return x.split(x.shape[0] // accum)
-
     # ------------------------------------------------------------------ losses
     # One micro-batch each: the trainer accumulates them, the tests hold them
     # against the JAX package with injected z.
@@ -214,20 +198,6 @@ class SuperResVideoGAN:
 
     # ------------------------------------------------------------------ steps
 
-    def _apply(self, opt: Adam, gain: float, base_lrate: float, warmup_steps: int) -> float:
-        """Scrub the accumulated gradients of `opt`'s parameters, clear
-        them, and take one Adam step at the warmed-up learning rate."""
-        with annotate("lvg.adam"):
-            params = opt.params
-            # One mean over the processes, of the micro-batch loop's sums: JAX
-            # scrubs gradients that are already global means.
-            grads = scrub_grads(mesh.all_reduce_mean_(collect_grads(params)), gain=gain)
-            for p in params:
-                p.grad = None
-            lrate = warmup_lrate(base_lrate, self.step, warmup_steps)
-            opt.step(grads, lrate)
-            return lrate
-
     def update_G(self, generator: torch.Generator, lr_video: torch.Tensor) -> dict:
         with annotate("lvg.update_G"):
             assert_shape(lr_video, (self.local_batch, self.channels, self.context_seq_length,
@@ -236,16 +206,14 @@ class SuperResVideoGAN:
             accum = self.G_grad_accum
             self.G.requires_grad_(True)
             self.D.requires_grad_(False)
-            zero = torch.zeros(3, device=self.device)
-            stats = {k: zero for k in ("loss/G_score", "loss/G_sign", "loss/G_loss")}
+            stats = None
             for lr_chunk in self._chunks(lr_video, accum):
                 loss, logits = micro_loss(self.remat, self.G_micro_loss, generator, lr_chunk)
                 loss.backward()
-                stats = {
-                    "loss/G_score": stats["loss/G_score"] + stats_lib.moments(logits),
-                    "loss/G_sign": stats["loss/G_sign"] + stats_lib.moments(torch.sign(logits)),
-                    "loss/G_loss": stats["loss/G_loss"] + stats_lib.loss_moments(loss),
-                }
+                stats = stats_lib.accumulate(stats, {
+                    "loss/G_score": stats_lib.moments(logits),
+                    "loss/G_sign": stats_lib.moments(torch.sign(logits)),
+                    "loss/G_loss": stats_lib.loss_moments(loss)})
             self.D.requires_grad_(True)
             lrate = self._apply(self.opt_G, 1.0 / accum, self.G_lrate, self.G_warmup_steps)
             stats["progress/G_lrate"] = stats_lib.scalar_moments(lrate)
@@ -265,10 +233,7 @@ class SuperResVideoGAN:
 
             accum = self.D_grad_accum
             self.D.requires_grad_(True)
-            names = ("loss/D_score_fake", "loss/D_score_real", "loss/D_sign_fake",
-                     "loss/D_sign_real", "loss/D_loss")
-            zero = torch.zeros(3, device=self.device)
-            stats = {k: zero for k in names}
+            stats = None
             for fl_ctx, fl, rl, rh in zip(*(self._chunks(v, accum) for v in (
                     fake_lr_video, fake_lr_crop, real_lr_crop, real_hr_video))):
                 with torch.no_grad():
@@ -277,15 +242,12 @@ class SuperResVideoGAN:
                 loss, flg, rlg = micro_loss(self.remat, self.D_micro_loss, generator, fl, fh,
                                             rl, rh)
                 loss.backward()
-                stats = {
-                    "loss/D_score_fake": stats["loss/D_score_fake"] + stats_lib.moments(flg),
-                    "loss/D_score_real": stats["loss/D_score_real"] + stats_lib.moments(rlg),
-                    "loss/D_sign_fake": (stats["loss/D_sign_fake"]
-                                          + stats_lib.moments(torch.sign(flg))),
-                    "loss/D_sign_real": (stats["loss/D_sign_real"]
-                                          + stats_lib.moments(torch.sign(rlg))),
-                    "loss/D_loss": stats["loss/D_loss"] + stats_lib.loss_moments(loss),
-                }
+                stats = stats_lib.accumulate(stats, {
+                    "loss/D_score_fake": stats_lib.moments(flg),
+                    "loss/D_score_real": stats_lib.moments(rlg),
+                    "loss/D_sign_fake": stats_lib.moments(torch.sign(flg)),
+                    "loss/D_sign_real": stats_lib.moments(torch.sign(rlg)),
+                    "loss/D_loss": stats_lib.loss_moments(loss)})
             lrate = self._apply(self.opt_D, 1.0 / accum, self.D_lrate, self.D_warmup_steps)
             # Feed the ADA controller the global batch's real-logit signs, so that
             # every process moves ada_p alike.
@@ -303,15 +265,13 @@ class SuperResVideoGAN:
             lr_video = self._apply_in_augment(generator, lr_video)
             accum = self.D_grad_accum
             self.D.requires_grad_(True)
-            zero = torch.zeros(3, device=self.device)
-            stats = {k: zero for k in ("loss/r1_penalty", "loss/r1_loss")}
+            stats = None
             for lr, hr in zip(self._chunks(lr_video, accum), self._chunks(hr_video, accum)):
                 loss, penalty = self.r1_micro_loss(generator, lr, hr)
                 loss.backward()
-                stats = {
-                    "loss/r1_penalty": stats["loss/r1_penalty"] + stats_lib.moments(penalty),
-                    "loss/r1_loss": stats["loss/r1_loss"] + stats_lib.loss_moments(loss),
-                }
+                stats = stats_lib.accumulate(stats, {
+                    "loss/r1_penalty": stats_lib.moments(penalty),
+                    "loss/r1_loss": stats_lib.loss_moments(loss)})
             self._apply(self.opt_D, gain / accum, self.D_lrate, self.D_warmup_steps)
             return stats
 
@@ -330,9 +290,3 @@ class SuperResVideoGAN:
             self.ada_p = torch.where(count > 0, new_p, self.ada_p)
             self.sign_real_moments = torch.zeros(3, device=self.device)
             return {"progress/augment_p": stats_lib.scalar_moments(self.ada_p)}
-
-    def update_G_ema(self) -> None:
-        with annotate("lvg.update_G_ema"):
-            beta = ema_beta_schedule(self.step, self.G_ema_beta, self.G_ema_warmup_steps)
-            lerp_trees(self.G_ema, self.G, 1.0 - beta)
-            self.step += 1

@@ -8,8 +8,9 @@ its state out:
     {"count", "hyperparams": {"eps_root", "learning_rate"},
      "hyperparams_states": {}, "inner_state": {"0": {"count", "mu", "nu"}, "1": {}}}
 
-with `mu` and `nu` trees shaped as the module's "params". The sres trainer
-adds `ada_p` and `sign_real_moments`. So a run moves between the JAX package
+with `mu` and `nu` trees shaped as the module's "params", and after them the
+tensors the trainer names in its `extra_state` (the sres trainer's `ada_p`
+and `sign_real_moments`). So a run moves between the JAX package
 (`io.checkpoint.load_checkpoint(path, target=state)`) and the port, either
 way; the header holds {"step": step}.
 """
@@ -87,9 +88,8 @@ def gan_to_tree(gan) -> dict:
             "G": module_to_variables(gan.G), "G_ema": module_to_variables(gan.G_ema),
             "D": module_to_variables(gan.D),
             "opt_G": adam_to_tree(gan.opt_G, gan.G), "opt_D": adam_to_tree(gan.opt_D, gan.D)}
-    if hasattr(gan, "ada_p"):
-        tree["ada_p"] = gan.ada_p.detach().float().cpu().numpy()
-        tree["sign_real_moments"] = gan.sign_real_moments.detach().float().cpu().numpy()
+    for name in gan.extra_state:
+        tree[name] = getattr(gan, name).detach().float().cpu().numpy()
     return tree
 
 
@@ -101,10 +101,8 @@ def gan_from_tree(gan, tree: dict) -> None:
     adam_from_tree(gan.opt_G, gan.G, tree["opt_G"])
     adam_from_tree(gan.opt_D, gan.D, tree["opt_D"])
     gan.step = int(np.asarray(tree["step"]))
-    if hasattr(gan, "ada_p"):
-        gan.ada_p = torch.tensor(np.asarray(tree["ada_p"], np.float32), device=gan.device)
-        gan.sign_real_moments = torch.tensor(np.asarray(tree["sign_real_moments"], np.float32),
-                                             device=gan.device)
+    for name in gan.extra_state:
+        setattr(gan, name, torch.tensor(np.asarray(tree[name], np.float32), device=gan.device))
 
 
 def save_train_checkpoint(path: str, gan, config: Optional[dict] = None) -> None:
@@ -123,7 +121,6 @@ def load_train_checkpoint(path: str, gan) -> dict[str, Any]:
 
 def replicate_train_state(gan) -> None:
     """Rank 0's train state on every process: G, D, G_ema, both Adam states
-    and, for the sres trainer, ADA's (the JAX CLIs' `replicate(state, mesh)`)."""
+    and the trainer's `extra_state` (the JAX CLIs' `replicate(state, mesh)`)."""
     mesh.replicate(gan.G, gan.D, gan.G_ema, gan.opt_G.mu, gan.opt_G.nu, gan.opt_D.mu,
-                   gan.opt_D.nu, *([gan.ada_p, gan.sign_real_moments] if hasattr(gan, "ada_p")
-                                   else []))
+                   gan.opt_D.nu, *(getattr(gan, name) for name in gan.extra_state))

@@ -12,6 +12,7 @@ from __future__ import annotations
 import json
 import re
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -35,6 +36,15 @@ def loss_moments(loss: torch.Tensor) -> torch.Tensor:
     """A micro-batch loss's moments, of its mean over the processes, so that
     the statistics match one process's at the same global batch."""
     return scalar_moments(mesh.mean_over_processes(loss))
+
+
+def accumulate(totals: Optional[dict], terms: dict) -> dict:
+    """A phase's running sums over its micro-batches: `totals` (None: zero
+    triples) plus one micro-batch's moment triples `terms`, key by key."""
+    if totals is None:
+        zero = torch.zeros(3, device=next(iter(terms.values())).device)
+        totals = dict.fromkeys(terms, zero)
+    return {name: totals[name] + term for name, term in terms.items()}
 
 
 class Collector:

@@ -1,8 +1,9 @@
 """Both trainer CLIs' `--matmul-precision` on the CPU, through one helper
-(`utils.misc.set_matmul_precision`): "highest" turns TF32 off in cuDNN and
-in matmuls, "high" allows it in matmuls, "default" leaves PyTorch's flags as
-they are; the choice lands in `config.json`. Training itself is stubbed out:
-only the CLI's parsing, flags and run directory run."""
+(`utils.misc.set_matmul_precision`, which the CLIs' shared `train.run.main`
+calls): "highest" turns TF32 off in cuDNN and in matmuls, "high" allows it in
+matmuls, "default" leaves PyTorch's flags as they are; the choice lands in
+`config.json`. Training itself is stubbed out: only the CLI's parsing, flags
+and run directory run."""
 
 import json
 from pathlib import Path
@@ -11,6 +12,7 @@ import pytest
 import torch
 
 from long_video_gan_tpu_torch import train_lres, train_sres
+from long_video_gan_tpu_torch.train import run
 
 
 @pytest.fixture
@@ -42,5 +44,13 @@ def test_matmul_precision_flag(cli, precision, restored_flags, tmp_path, monkeyp
     assert (torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()) == want
 
 
-def test_trainers_share_the_helper():
-    assert train_lres.set_matmul_precision is train_sres.set_matmul_precision
+def test_trainers_share_the_helper(tmp_path, monkeypatch):
+    """Both CLIs set the precision through the one skeleton, `train.run.main`."""
+    calls = []
+    monkeypatch.setattr(run, "set_matmul_precision", calls.append)
+    for cli in (train_lres, train_sres):
+        monkeypatch.setattr(cli, "train", lambda *args: None)
+        cli.main(["--dataset", str(tmp_path / "data"), "--outdir", str(tmp_path / cli.__name__),
+                  "--preset", "tiny", "--batch", "4", "--device", "cpu",
+                  "--matmul-precision", "high"])
+    assert calls == ["high", "high"]
