@@ -14,15 +14,25 @@ every order runs cuDNN's forward, input-gradient and weight-gradient
 kernels. The values are those of `F.conv{1,2,3}d`; XLA differentiates the
 JAX package's convolutions the same way by construction.
 
+No Function runs a gradient convolution whose result nothing reads. A
+backward that receives no gradient (None: the Functions do not materialise
+it as zeros) launches nothing and returns None. Inside `no_weight_gradients()`
+the convolution's backward computes the input gradient alone: R1's
+`autograd.grad(logits, video, create_graph=True)` asks for no weight's
+gradient, but `ctx.needs_input_grad` is fixed at the forward (StyleGAN2-ADA's
+`conv2d_gradfix.no_weight_gradients` does the same around its R1).
+
 Each Function counts its calls (`fwd_calls`, `input_grad_calls`,
-`weight_grad_calls`, since the module was imported) and, while a profiler
-records, runs inside the span `lvg.conv.fwd`, `lvg.conv.input_grad` or
+`weight_grad_calls`, since the module was imported), `skipped_calls` the
+gradient convolutions they declined to run, and, while a profiler records,
+each runs inside the span `lvg.conv.fwd`, `lvg.conv.input_grad` or
 `lvg.conv.weight_grad`, on the thread that calls it: autograd's for every
 gradient.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
@@ -34,6 +44,31 @@ from ..utils.profiling import annotate
 fwd_calls = 0
 input_grad_calls = 0
 weight_grad_calls = 0
+# Gradient convolutions declined: weight gradients inside
+# `no_weight_gradients()`, and those of backward calls that received None.
+skipped_calls = 0
+
+# Module state and not thread-local: the backward runs on autograd's device
+# thread, not on the thread that entered the scope.
+_weight_gradients_disabled = False
+
+
+@contextlib.contextmanager
+def no_weight_gradients():
+    """Inside the block, the backward of `conv` computes no weight gradient
+    (returns None for `w`); the gradients' own derivatives are unaffected."""
+    global _weight_gradients_disabled
+    old = _weight_gradients_disabled
+    _weight_gradients_disabled = True
+    try:
+        yield
+    finally:
+        _weight_gradients_disabled = old
+
+
+def _skip(n: int) -> None:
+    global skipped_calls
+    skipped_calls += n
 
 
 def conv(x: torch.Tensor, w: torch.Tensor, padding: Sequence[int]) -> torch.Tensor:
@@ -73,6 +108,7 @@ class _Conv(torch.autograd.Function):
     def forward(ctx, x, w, padding):
         global fwd_calls
         fwd_calls += 1
+        ctx.set_materialize_grads(False)
         ctx.save_for_backward(x, w)
         ctx.padding = padding
         with annotate("lvg.conv.fwd"):
@@ -81,11 +117,18 @@ class _Conv(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        want_gx, want_gw = ctx.needs_input_grad[:2]
+        if g is None:
+            _skip(want_gx + want_gw)
+            return None, None, None
+        if want_gw and _weight_gradients_disabled:
+            _skip(1)
+            want_gw = False
         x, w = ctx.saved_tensors
         gx = gw = None
-        if ctx.needs_input_grad[0]:
+        if want_gx:
             gx = _ConvInputGrad.apply(g, w, tuple(x.shape), ctx.padding)
-        if ctx.needs_input_grad[1]:
+        if want_gw:
             gw = _ConvWeightGrad.apply(x, g, tuple(w.shape), ctx.padding)
         return gx, gw, None
 
@@ -98,6 +141,7 @@ class _ConvInputGrad(torch.autograd.Function):
     def forward(ctx, g, w, x_shape, padding):
         global input_grad_calls
         input_grad_calls += 1
+        ctx.set_materialize_grads(False)
         ctx.save_for_backward(g, w)
         ctx.padding = padding
         with annotate("lvg.conv.input_grad"):
@@ -105,6 +149,9 @@ class _ConvInputGrad(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ggx):
+        if ggx is None:
+            _skip(sum(ctx.needs_input_grad[:2]))
+            return None, None, None, None
         g, w = ctx.saved_tensors
         dg = dw = None
         if ctx.needs_input_grad[0]:
@@ -122,6 +169,7 @@ class _ConvWeightGrad(torch.autograd.Function):
     def forward(ctx, x, g, w_shape, padding):
         global weight_grad_calls
         weight_grad_calls += 1
+        ctx.set_materialize_grads(False)
         ctx.save_for_backward(x, g)
         ctx.padding = padding
         with annotate("lvg.conv.weight_grad"):
@@ -129,6 +177,9 @@ class _ConvWeightGrad(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ggw):
+        if ggw is None:
+            _skip(sum(ctx.needs_input_grad[:2]))
+            return None, None, None, None
         x, g = ctx.saved_tensors
         dx = dg = None
         if ctx.needs_input_grad[0]:

@@ -40,6 +40,7 @@ import torch.nn.functional as F
 from ..models.diff_augment import diff_augment
 from ..models.discriminator_lres import VideoDiscriminator
 from ..models.generator_lres import VideoGenerator
+from ..ops.conv import no_weight_gradients
 from ..parallel import mesh
 from ..utils.misc import assert_shape
 from ..utils.profiling import annotate, layer_span
@@ -150,10 +151,14 @@ class LowResVideoGAN(GANTrainer):
     def r1_micro_loss(self, generator: Optional[torch.Generator], video: torch.Tensor):
         """(mean R1 penalty * gamma / 2, per-sample penalty): the squared
         gradient of D's summed logits, augmentations included, with respect
-        to the real video."""
+        to the real video. The gradient's graph holds no weight gradient of
+        D's convolutions (`ops.conv.no_weight_gradients`): nothing reads
+        one, and the loss's backward still differentiates it in D's
+        weights."""
         video = video.detach().requires_grad_(True)
         logits = self.run_D(generator, video)
-        (r1_grads,) = torch.autograd.grad(logits.sum(), video, create_graph=True)
+        with no_weight_gradients():
+            (r1_grads,) = torch.autograd.grad(logits.sum(), video, create_graph=True)
         penalty = r1_grads.square().sum(dim=(1, 2, 3, 4))
         return (penalty * (self.r1_gamma / 2)).mean(), penalty
 

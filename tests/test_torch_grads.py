@@ -7,6 +7,8 @@
     backward raises in both.
   * Forward and gradient of upfirdn2d, bias_act (all 9 activations) and the
     composed filtered_lrelu against `jax.vjp`; second order for upfirdn2d.
+  * bias_act's lrelu Functions against `F.leaky_relu` (the same bits to first
+    order), gradcheck and gradgradcheck, and no Function without a gradient.
 """
 
 import importlib
@@ -245,6 +247,62 @@ def test_bias_act_grad_matches_jax(act):
         np.testing.assert_allclose(got_y, want_y, rtol=1e-6, atol=1e-6)
         for g, w_ in zip(got, want):
             np.testing.assert_allclose(g, w_, rtol=1e-5, atol=1e-5)
+
+
+LRELU_KWARGS = [dict(), dict(gain=1.0), dict(clamp=0.5), dict(gain=2.0, clamp=1.0)]
+
+
+def _plain_lrelu(x, b, gain=math.sqrt(2.0), clamp=None):
+    """bias_act's lrelu as PyTorch's autograd sees a plain expression."""
+    y = torch.nn.functional.leaky_relu(x + b[None, :, None], 0.2)
+    y = y * gain if gain != 1.0 else y
+    return y.clamp(-clamp, clamp) if clamp is not None else y
+
+
+@pytest.mark.parametrize("kw", LRELU_KWARGS, ids=["default", "gain1", "clamp", "gain_clamp"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_bias_act_lrelu_bit_equal_to_leaky_relu(dtype, kw):
+    """lrelu's autograd Functions run PyTorch's own kernels: the output and the
+    first-order input and bias gradients have `F.leaky_relu`'s bits, on
+    inputs with zeros and negatives."""
+    g = torch.Generator().manual_seed(14)
+    x = torch.randn((3, 5, 7), generator=g).to(dtype)
+    x[0, :, :3] = 0
+    b = torch.randn(5, generator=g).to(dtype)
+    b[1] = 0
+    cot = torch.randn((3, 5, 7), generator=g).to(dtype)
+    outs = []
+    for fn in (lambda v, c: bias_act(v, c, act="lrelu", **kw),
+               lambda v, c: _plain_lrelu(v, c, **kw)):
+        xs, bs = x.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        y = fn(xs, bs)
+        outs.append([y.detach(), *torch.autograd.grad(y, [xs, bs], cot)])
+    itype = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    for got, want in zip(*outs):
+        assert torch.equal(got.view(itype), want.view(itype))
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(gain=0.7, clamp=1.5)], ids=["default", "gain_clamp"])
+def test_bias_act_lrelu_gradcheck(kw):
+    """The Functions' first and second derivatives against finite differences
+    in float64 (the second has no term in the input: zero off the kinks)."""
+    g = torch.Generator().manual_seed(15)
+    x = torch.randn((2, 3, 4), generator=g, dtype=torch.float64).requires_grad_(True)
+    b = torch.randn(3, generator=g, dtype=torch.float64).requires_grad_(True)
+    fn = lambda v, c: bias_act(v, c, act="lrelu", **kw)  # noqa: E731
+    assert torch.autograd.gradcheck(fn, (x, b))
+    assert torch.autograd.gradgradcheck(fn, (x, b))
+
+
+def test_bias_act_lrelu_plain_without_grad():
+    """Under `torch.no_grad()`, or where no input requires a gradient, lrelu is
+    `F.leaky_relu` itself: no autograd Function runs; where the input requires
+    one, the Function does."""
+    x = torch.randn(2, 3, 4)
+    assert bias_act(x, act="lrelu").grad_fn is None
+    with torch.no_grad():
+        assert bias_act(x.requires_grad_(True), act="lrelu").grad_fn is None
+    assert type(bias_act(x, act="lrelu", gain=1.0).grad_fn).__name__ == "_LeakyReLUBackward"
 
 
 # Small versions of the three filtered_lrelu geometries of the 144x256 plan.

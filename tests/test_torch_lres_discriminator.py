@@ -4,7 +4,9 @@ block ladder (0.05 of max |out|, 0.1 relative L2 of the input gradient),
 R1's grad-of-grad through the bf16 casts (finite), and the variable tree
 carried across both ways (`load_jax_variables` / `module_to_variables`).
 Also `ops.conv`, its dense convolution, against PyTorch's own to the third
-order."""
+order and in R1's pattern under `no_weight_gradients()`."""
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -17,7 +19,8 @@ from long_video_gan_tpu.models import discriminator_lres as jax_dlres
 from long_video_gan_tpu_torch.io.convert_torch import load_jax_variables, module_to_variables
 from long_video_gan_tpu_torch.models import discriminator_lres
 from long_video_gan_tpu_torch.models.common import init_weights_
-from long_video_gan_tpu_torch.ops.conv import conv
+from long_video_gan_tpu_torch.ops import conv as conv_ops
+from long_video_gan_tpu_torch.ops.conv import conv, no_weight_gradients
 from test_torch_generators import random_variables
 from test_torch_lres_train import one_torch_thread  # noqa: F401
 
@@ -141,8 +144,10 @@ def test_conv_matches_torch_to_third_order(x_shape, w_shape, padding):
     """`ops.conv`, whose gradients are its own three Functions, against
     `F.conv1d` / `F.conv3d` under PyTorch's autograd, in float64: the output,
     R1's penalty-style second order (the weight gradient of ||dy/dx||^2) and
-    a third order through it; then gradcheck and gradgradcheck against
-    finite differences."""
+    a third order through it; R1's pattern, the input gradient taken under
+    `no_weight_gradients()` (no weight gradient runs inside the scope) and
+    then differentiated in the weights; then gradcheck and gradgradcheck
+    against finite differences."""
     ref = torch.nn.functional.conv1d if len(padding) == 1 else torch.nn.functional.conv3d
     g = torch.Generator().manual_seed(24)
     x0 = torch.randn(x_shape, generator=g, dtype=torch.float64)
@@ -159,6 +164,67 @@ def test_conv_matches_torch_to_third_order(x_shape, w_shape, padding):
     for got, want in zip(orders(lambda x, w: conv(x, w, padding)),
                          orders(lambda x, w: ref(x, w, padding=padding))):
         torch.testing.assert_close(got, want, rtol=1e-10, atol=1e-10)
+
+    def r1(fn, scope):
+        x, w = x0.clone().requires_grad_(True), w0.clone().requires_grad_(True)
+        y = fn(x, w)
+        with scope():
+            (gx,) = torch.autograd.grad(y.sum() + y.square().sum(), x, create_graph=True)
+        (gw,) = torch.autograd.grad(gx.square().sum(), w)
+        return gx, gw
+
+    before = conv_ops.weight_grad_calls, conv_ops.skipped_calls
+    ours = r1(lambda x, w: conv(x, w, padding), no_weight_gradients)
+    # The scope's backward skips the forward's weight gradient; the loss's
+    # backward runs two: the input gradient's, and the forward's (the output
+    # gradient 1 + 2y depends on w through y).
+    assert (conv_ops.weight_grad_calls - before[0], conv_ops.skipped_calls - before[1]) == (2, 1)
+    theirs = r1(lambda x, w: ref(x, w, padding=padding), contextlib.nullcontext)
+    for got, want in zip(ours, theirs):
+        torch.testing.assert_close(got, want, rtol=1e-10, atol=1e-10)
     x, w = x0.clone().requires_grad_(True), w0.clone().requires_grad_(True)
     assert torch.autograd.gradcheck(lambda a, b: conv(a, b, padding), (x, w))
     assert torch.autograd.gradgradcheck(lambda a, b: conv(a, b, padding), (x, w))
+
+
+def test_no_weight_gradients_restored_after_an_exception():
+    """The scope's flag is restored on exit and after an exception, nested or
+    not; outside it the convolution's backward computes the weight gradient."""
+    assert not conv_ops._weight_gradients_disabled
+    with pytest.raises(RuntimeError, match="inside"):
+        with no_weight_gradients():
+            with no_weight_gradients():
+                assert conv_ops._weight_gradients_disabled
+            assert conv_ops._weight_gradients_disabled
+            raise RuntimeError("inside")
+    assert not conv_ops._weight_gradients_disabled
+    x = torch.randn(1, 2, 5, requires_grad=True)
+    w = torch.randn(3, 2, 3, requires_grad=True)
+    gx, gw = torch.autograd.grad(conv(x, w, (1,)).sum(), [x, w])
+    assert gx is not None and gw is not None
+
+
+class _DropGradient(torch.autograd.Function):
+    """The identity, whose backward gives its input no gradient (None)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return None
+
+
+def test_conv_backward_without_a_gradient_launches_nothing():
+    """A backward that receives None (the Functions do not materialise it as
+    zeros) runs no convolution, returns None and counts the gradients it
+    declined in `skipped_calls`."""
+    x = torch.randn(1, 2, 5, requires_grad=True)
+    w = torch.randn(3, 2, 3, requires_grad=True)
+    before = conv_ops.input_grad_calls, conv_ops.weight_grad_calls, conv_ops.skipped_calls
+    y = _DropGradient.apply(conv(x, w, (1,)))
+    gx, gw = torch.autograd.grad(y.sum(), [x, w], allow_unused=True)
+    assert gx is None and gw is None
+    after = conv_ops.input_grad_calls, conv_ops.weight_grad_calls, conv_ops.skipped_calls
+    assert (after[0] - before[0], after[1] - before[1], after[2] - before[2]) == (0, 0, 2)

@@ -22,6 +22,8 @@ import torch
 
 from long_video_gan_tpu.train.gan_lres import LowResVideoGAN as JaxLowResVideoGAN
 from long_video_gan_tpu_torch.io.convert_torch import flax_path_to_torch_key, load_jax_variables
+from long_video_gan_tpu_torch.models import discriminator_lres
+from long_video_gan_tpu_torch.ops import bias_act
 from long_video_gan_tpu_torch.train import stats
 from long_video_gan_tpu_torch.train.gan_lres import LowResVideoGAN
 from test_torch_generators import random_variables
@@ -170,6 +172,47 @@ def test_r1_micro_loss_and_grads_match_jax(pair):
     np.testing.assert_allclose(loss.item(), float(want), rtol=RTOL)
     np.testing.assert_allclose(penalty.detach().numpy(), np.asarray(want_pen), rtol=RTOL)
     _assert_grads_match(gan_t.D, grads, flax_path_to_torch_key)
+
+
+def test_r1_micro_batch_matches_plain_autograd_in_float64(monkeypatch):
+    """One R1 micro-batch of the tiny trainer in float64, every augmentation
+    on: D's parameter gradients against the same D with `ops.conv` and
+    bias_act's lrelu replaced by `F.conv{1,3}d` and `F.leaky_relu` under
+    PyTorch's own autograd, to 1e-12 of each tensor's largest. The skipped
+    weight gradients and gradients of zeros change no value: a parameter that
+    no gradient reaches (None, which the optimizer reads as zeros) has a
+    plain gradient of exactly zero."""
+    gan = LowResVideoGAN(**LRES_CFG, device="cpu")
+    gan.init_state(torch.Generator().manual_seed(2))
+    gan.D.double()
+    for block in gan.D.blocks:     # the blocks and the epilogue cast to float32
+        block.use_fp16, block.half_dtype = True, torch.float64
+    to_float = torch.Tensor.float
+    monkeypatch.setattr(torch.Tensor, "float",
+                        lambda t: t if t.dtype == torch.float64 else to_float(t))
+    real = torch.from_numpy(np.random.default_rng(68).uniform(-1, 1, (MICRO, 3, 8, 18, 32)))
+
+    def grads():
+        gan.D.zero_grad(set_to_none=True)
+        loss, _ = gan.r1_micro_loss(torch.Generator().manual_seed(3), real)
+        assert loss.dtype == torch.float64
+        loss.backward()
+        return loss.item(), {k: p.grad for k, p in gan.D.named_parameters()}
+
+    loss, got = grads()
+    plain_conv = {1: torch.nn.functional.conv1d, 3: torch.nn.functional.conv3d}
+    monkeypatch.setattr(discriminator_lres, "conv", lambda x, w, padding: plain_conv[
+        len(padding)](x, w, padding=tuple(padding)))
+    monkeypatch.setitem(bias_act.activation_funcs, "lrelu", bias_act.ActivationSpec(
+        lambda x, alpha: torch.nn.functional.leaky_relu(x, alpha), 0.2, np.sqrt(2.0)))
+    want_loss, want = grads()
+    assert loss == want_loss
+    params = dict(gan.D.named_parameters())
+    dense = lambda g, name: g if g is not None else torch.zeros_like(params[name])  # noqa: E731
+    assert sum(g is None for g in got.values()) > sum(g is None for g in want.values())
+    for name in params:
+        g, w = dense(got[name], name), dense(want[name], name)
+        assert float((g - w).abs().max()) <= 1e-12 * float(w.abs().max()), name
 
 
 def test_lres_full_step_cycle():
