@@ -26,6 +26,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.bias_act import bias_act
+from ..ops.conv import conv
 from ..ops.filters import design_kaiser_lowpass
 from ..utils.misc import assert_shape
 from ..utils.profiling import annotate, layer_span
@@ -51,7 +52,16 @@ def temporal_modulated_conv3d(
     demodulate: bool = True,
 ) -> torch.Tensor:
     """Modulated conv3d with per-timestep styles; weights, styles and the
-    demodulation coefficients in f32, the conv in x's dtype."""
+    demodulation coefficients in f32, the conv in x's dtype.
+
+    The convolution runs through `ops.conv`, as the skip's and D's do: its
+    gradients of every order are its own three Functions, and a 1x1x1 kernel
+    (ToRGB's and the blocks' skips) takes its weight gradient as a 2D 1x1
+    weight gradient over [N, C, T*H*W, 1] views, where cuDNN's 3D weight
+    gradient runs generic engines (ToRGB's input and weight gradient took
+    91.5 ms a micro-batch of 16 on an H100). The spatial blocks' 1x3x3 and
+    the temporal blocks' 3x3x3 kernels stay on cuDNN's 3D kernels, the
+    fastest measured for them (`ops/conv.py`)."""
     assert x.ndim == 5
     batch, in_channels = x.shape[0], x.shape[1]
     assert_shape(weight, (None, in_channels, None, None, None))
@@ -76,7 +86,7 @@ def temporal_modulated_conv3d(
         x = x * input_gain.to(x.dtype)
 
     x = x * style[:, :, :, None, None].to(x.dtype)
-    y = F.conv3d(x, weight.to(x.dtype), padding=padding)
+    y = conv(x, weight.to(x.dtype), padding)
 
     if demodulate:
         y = y * demod[:, :, :, None, None].to(y.dtype)
@@ -249,7 +259,7 @@ class Synthesis3dResBlock(nn.Module):
         h = temporal_modulated_conv3d(h, self.weight_1, style_1, gain_1, padding, demodulate=True)
 
         skip_gain = 1.0 / math.sqrt(self.in_channels)
-        skip = F.conv3d(x, (self.weight_skip * skip_gain).to(x.dtype))
+        skip = conv(x, (self.weight_skip * skip_gain).to(x.dtype), (0, 0, 0))
         h = (skip + h) * math.sqrt(0.5)
 
         if self.temporal_up:

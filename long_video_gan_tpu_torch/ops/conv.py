@@ -22,6 +22,23 @@ the convolution's backward computes the input gradient alone: R1's
 gradient, but `ctx.needs_input_grad` is fixed at the forward (StyleGAN2-ADA's
 `conv2d_gradfix.no_weight_gradients` does the same around its R1).
 
+Routes, by kernel shape, chosen on the card's times of every lres
+convolution (float32, TF32 off, micro-batch 16; NVIDIA H100 80GB HBM3,
+torch 2.11 with cuDNN 92200): a kernel of size one on every axis, without
+padding (the lres models' 1x1x1 skips, D's from-RGB, G's ToRGB, the conv1d
+of kernel 1), takes its weight gradient as cuDNN's 2D 1x1 weight gradient
+over the same memory viewed as [N, C, positions, 1], with no copy. cuDNN's N-d weight gradient
+runs such a kernel on generic engines: D's from-RGB (3 -> 32 channels at
+128 x 64 x 64) took 128.4 ms a call in `wgrad2d_grouped_direct_kernel`, the
+2D view 1.0 ms. Every other call, the 1x1x1 forwards and input gradients
+included, goes to cuDNN's N-d kernels as PyTorch calls them, on cuDNN's
+heuristic choice: the channels_last_3d layout and folding T into the batch
+of a 2D convolution (1xkxk kernels) were slower, and the fold costs GiBs of
+copies; the input gradient as a forward convolution of the flipped filter
+won on two shapes of many. cuBLAS ran the 1x1x1 forwards and input
+gradients faster, but under the matmul precision flag rather than cuDNN's
+TF32 flag, for about 0.5% of a training step.
+
 Each Function counts its calls (`fwd_calls`, `input_grad_calls`,
 `weight_grad_calls`, since the module was imported), `skipped_calls` the
 gradient convolutions they declined to run, and, while a profiler records,
@@ -94,7 +111,22 @@ def _input_grad(g, w, x_shape, padding):
         _zeros(padding), 1, (True, False, False))[0]
 
 
+def _pointwise(w_shape, padding) -> bool:
+    """A kernel of size one on every axis, without padding: a product over
+    the channels at each position, whatever the layout of the positions."""
+    return all(k == 1 for k in w_shape[2:]) and not any(padding)
+
+
 def _weight_grad(x, g, w_shape, padding):
+    if _pointwise(w_shape, padding):
+        # The 2D weight gradient over [N, C, positions, 1] views (module doc).
+        x = x.reshape(x.shape[0], x.shape[1], -1, 1)
+        g = g.reshape(g.shape[0], g.shape[1], -1, 1)
+        return _cudnn_weight_grad(x, g, (*w_shape[:2], 1, 1), (0, 0)).view(w_shape)
+    return _cudnn_weight_grad(x, g, w_shape, padding)
+
+
+def _cudnn_weight_grad(x, g, w_shape, padding):
     dummy = g.new_empty(1).expand(w_shape)
     return torch.ops.aten.convolution_backward(
         g, x, dummy, None, _ones(padding), list(padding), _ones(padding), False,

@@ -7,10 +7,10 @@ two in update_D) and each block's `.bwd` once per micro-batch of update_G;
 each D block and the epilogue once per D call, with a `.bwd` for every
 backward pass that runs through them from an input that requires a
 gradient; `lvg.augment` once per D call; `lvg.conv.*` once per `ops.conv`
-call. Every `.bwd` span that opens closes. The counters move in R1's double
-backward and not in G, which convolves through cuDNN directly; R1 runs no
-convolution whose result nothing reads. With no profiler recording, a cycle
-enters no `record_function`."""
+call. Every `.bwd` span that opens closes. The counters move wherever G or D
+convolves, since both convolve through `ops.conv`; R1 runs no convolution
+whose result nothing reads. With no profiler recording, a cycle enters no
+`record_function`."""
 
 import collections
 import json
@@ -110,7 +110,16 @@ def test_conv_spans_and_counters(cycle):
     """Per R1 phase, with k = D's `ops.conv` calls per forward times the
     micro-batches: k forwards and k input gradients (D and its gradient),
     then k forwards and k weight gradients (the gradient's derivative); the
-    first backward's k weight gradients, which nothing reads, are skipped."""
+    first backward's k weight gradients, which nothing reads, are skipped.
+
+    G convolves through `ops.conv` too: 31 calls a forward (ten blocks of two
+    modulated convolutions and a 1x1x1 skip, and ToRGB), D 17 (four blocks of
+    three, from-RGB in block 0, four conv1d). Per micro-batch, update_G runs
+    G and D forward (31 + 17), every input gradient (31 + 17: G's first input
+    depends on its learned constant) and G's 31 weight gradients (D's weights
+    are frozen); update_D runs G forward without a gradient (31) and D on the
+    fakes and the reals (2 x 17), D's 2 x 17 weight gradients and 2 x 16
+    input gradients (all but from-RGB's, whose input is the clips)."""
     spans, moves = cycle
     for kind, counter in (("fwd", "fwd_calls"), ("input_grad", "input_grad_calls"),
                           ("weight_grad", "weight_grad_calls")):
@@ -124,15 +133,24 @@ def test_conv_spans_and_counters(cycle):
     assert per_forward == 17 and k == 34
     assert moves["update_r1"] == dict(fwd_calls=2 * k, input_grad_calls=k,
                                       weight_grad_calls=k, skipped_calls=k)
+    micro = gan.G_grad_accum
+    assert moves["update_G"] == dict(fwd_calls=micro * (31 + 17),
+                                     input_grad_calls=micro * (31 + 17),
+                                     weight_grad_calls=micro * 31, skipped_calls=0)
+    assert moves["update_D"] == dict(fwd_calls=micro * (31 + 2 * 17),
+                                     input_grad_calls=micro * 2 * 16,
+                                     weight_grad_calls=micro * 2 * 17, skipped_calls=0)
 
 
 def test_counters_still_without_r1_or_d():
+    """Without R1 or D the counters move by G's forwards alone: 31
+    convolutions a G call without a gradient, none in the G_ema update."""
     c, gan, real = _trainer()
     before = _counters()
     with torch.no_grad():
         gan.generate(torch.Generator().manual_seed(3), 2)
     gan.update_G_ema()
-    assert _moved(before) == dict.fromkeys(COUNTERS, 0)
+    assert _moved(before) == dict(dict.fromkeys(COUNTERS, 0), fwd_calls=31)
     calls = []
     update_r1 = gan.update_r1
     gan.update_r1 = lambda *a, **k: calls.append(1) or update_r1(*a, **k)
